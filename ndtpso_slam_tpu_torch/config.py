@@ -161,8 +161,7 @@ class SlamConfig:
     # align() widens the search to twice the last inter-scan motion
     # (ndtframe.cpp:253).
     deviation_scale: float = 2.0
-    # 'exact' | 'local_exact' | 'rollout_local' in the port; see
-    # models/slam.py:SLAM_COST_MODES.
+    # One of models/slam.py:SLAM_COST_MODES.
     cost_mode: str = "exact"
     optimizer: str = "pso"
     # Rollout cost modes only: stop a solve once its global best has stalled

@@ -1,10 +1,12 @@
 // Whole-solve PSO scan match with per-particle exact stencil rebinning.
 //
-// Replaces ndtpso_slam_tpu/ops/pallas_rollout.py:_rollout_local_kernel (the
-// Threefry, exact-exp form with its early exit).  One thread block runs one
-// whole solve: the Threefry-2x32 draws of the frozen counter protocol
-// (ops/rng.py), the population init, the synchronous-gbest loop with the
-// first-argmin merge, and every cost evaluation, in a single launch.  Per
+// Replaces ndtpso_slam_tpu/ops/pallas_rollout.py:_rollout_local_kernel, both
+// branches: Threefry with exact exp (rollout_local), and the turbo branch
+// (rollout_local_turbo), whose TPU hardware generator becomes Philox4x32-10
+// (the layout of ops/rng.py:philox_uniforms) and which scores with exp2.
+// One thread block runs one whole solve: the draws, the population init,
+// the synchronous-gbest loop with the first-argmin merge, and every cost
+// evaluation, in a single launch.  Per
 // (particle, point) an evaluation transforms the point, bins it, and, when
 // the cell lies inside the point's 25-cell stencil, loads that stencil lane
 // directly (sten[kk][n]) -- the TPU kernel's one-hot select over the 25
@@ -26,15 +28,14 @@
 // and expf/sinf/cosf are the accurate ones; what remains are the last-ulp
 // differences of those functions and the order of the point sums.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "pso_common.cuh"
 
 namespace {
 
+using namespace ndt;
+
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr float kCoordClamp = 1073741824.0f;  // 2^30, see geometry._floor_i32
 
 struct Params {
   int n_pts;
@@ -42,6 +43,8 @@ struct Params {
   int iters;
   int radius;
   int early_exit;
+  int philox;    // 0: Threefry (parity stream), 1: Philox (turbo)
+  int exp2_mode; // 0: expf(-q/2), 1: exp2f(q * kExp2Scale) (turbo)
   float half;
   float cell_side;
   float w0;
@@ -50,98 +53,6 @@ struct Params {
   float w_damping;
   float zdev0, zdev1, zdev2;
 };
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// Threefry-2x32, 20 rounds (ops/rng.py:threefry2x32).
-__device__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t c0, uint32_t c1,
-                             uint32_t* o0, uint32_t* o1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  uint32_t x0 = c0 + k0;
-  uint32_t x1 = c1 + k1;
-#pragma unroll
-  for (int b = 0; b < 5; ++b) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      x0 += x1;
-      x1 = rotl(x1, rot[b & 1][r]) ^ x0;
-    }
-    x0 += ks[(b + 1) % 3];
-    x1 += ks[(b + 2) % 3] + (uint32_t)(b + 1);
-  }
-  *o0 = x0;
-  *o1 = x1;
-}
-
-__device__ __forceinline__ float u01(uint32_t bits) {
-  return (float)(bits >> 8) * (1.0f / 16777216.0f);
-}
-
-__device__ __forceinline__ int floor_i32(float v) {
-  return (int)fminf(fmaxf(floorf(v), -kCoordClamp), kCoordClamp);
-}
-
-// a strictly better than b under the first-argmin rule.
-__device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
-  return av < bv || (av == bv && ai < bi);
-}
-
-// Block-wide first-argmin of c[0..p).  Returns the minimum through *mv (NaN
-// if any entry is NaN, as jnp.min gives) and its first index through *mi.
-// All threads must call it; the result is valid in every thread.
-__device__ void block_argmin(const float* c, int p, float* mv, int* mi,
-                             float* red_v, int* red_i, int* red_nan) {
-  float bv = INFINITY;
-  int bi = 0x7fffffff;
-  int nan = 0;
-  for (int j = threadIdx.x; j < p; j += kThreads) {
-    const float v = c[j];
-    if (isnan(v)) {
-      nan = 1;
-    } else if (better(v, j, bv, bi)) {
-      bv = v;
-      bi = j;
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-    if (better(ov, oi, bv, bi)) {
-      bv = ov;
-      bi = oi;
-    }
-  }
-  nan = __any_sync(0xffffffffu, nan);
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    red_v[warp] = bv;
-    red_i[warp] = bi;
-    red_nan[warp] = nan;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float v = red_v[0];
-    int i = red_i[0];
-    int any_nan = red_nan[0];
-    for (int w = 1; w < kWarps; ++w) {
-      if (better(red_v[w], red_i[w], v, i)) {
-        v = red_v[w];
-        i = red_i[w];
-      }
-      any_nan |= red_nan[w];
-    }
-    red_v[0] = any_nan ? NAN : v;
-    red_i[0] = i;
-  }
-  __syncthreads();
-  *mv = red_v[0];
-  *mi = red_i[0];
-  __syncthreads();
-}
 
 __global__ void __launch_bounds__(kThreads)
 rollout_local_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
@@ -178,9 +89,7 @@ rollout_local_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
   float* s_cost = s_pbest + 3 * p;     // [p + 1]
   float* s_pbc = s_cost + (p + 1);     // [p]
   float* s_trig = s_pbc + p;           // [(p + 1) * 2] cos, sin
-  __shared__ float red_v[kWarps];
-  __shared__ int red_i[kWarps];
-  __shared__ int red_nan[kWarps];
+  __shared__ ArgminScratch<kThreads> red;
   __shared__ float s_gbest[3];
   __shared__ float s_gcost;
   __shared__ int s_stale;
@@ -230,7 +139,7 @@ rollout_local_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
             const float dx = qx - a.x;
             const float dy = qy - a.y;
             const float quad = a.z * dx * dx + 2.0f * a.w * dx * dy + e.x * dy * dy;
-            acc += expf(-0.5f * quad);
+            acc += prm.exp2_mode ? exp2f(quad * kExp2Scale) : expf(-0.5f * quad);
           }
         }
       }
@@ -241,26 +150,24 @@ rollout_local_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
     __syncthreads();
   };
 
-  // --- init: gbest seed from counters 0..2, population from 3 + 3j + k.
-  for (int e = threadIdx.x; e < 3 * p + 3; e += kThreads) {
-    uint32_t lo, hi;
-    if (e < 3 * p) {
-      threefry2x32(k0, k1, 3u + (uint32_t)e, 0u, &lo, &hi);
-      const int k = e % 3;
-      const float x = guess[k] + (2.0f * u01(lo) - 1.0f) * dev[k];
-      s_pos[e] = x;
-      s_pbest[e] = x;
-      s_vel[e] = 0.0f;
-    } else {
-      const int k = e - 3 * p;
-      threefry2x32(k0, k1, (uint32_t)k, 0u, &lo, &hi);
-      s_pos[e] = guess[k] + (2.0f * u01(lo) - 1.0f) * zdev[k];
+  // --- init: the population, and the gbest seed in slot p.
+  for (int j = threadIdx.x; j <= p; j += kThreads) {
+    float u[3];
+    init_uniforms(prm.philox, k0, k1, j, p, u);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float x = guess[k] + (2.0f * u[k] - 1.0f) * (j < p ? dev[k] : zdev[k]);
+      s_pos[3 * j + k] = x;
+      if (j < p) {
+        s_pbest[3 * j + k] = x;
+        s_vel[3 * j + k] = 0.0f;
+      }
     }
   }
   evaluate(p + 1);
   float bc;
   int bi;
-  block_argmin(s_cost, p, &bc, &bi, red_v, red_i, red_nan);
+  block_argmin<kThreads>(s_cost, p, &bc, &bi, red);
   if (threadIdx.x == 0) {
     const float g_cost = s_cost[p];
     const bool imp = bc < g_cost;
@@ -272,23 +179,21 @@ rollout_local_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
   __syncthreads();
 
   // --- synchronous-gbest loop (core.cpp:78-110).
-  const uint32_t iter_base = 3u + 3u * (uint32_t)p;
-  const uint32_t iter_stride = 3u * (uint32_t)p;
   float w = prm.w0;
   for (int it = 0; it < prm.iters; ++it) {
     if (prm.early_exit > 0 && s_stale >= prm.early_exit) break;
-    const uint32_t base = iter_base + (uint32_t)it * iter_stride;
-    for (int e = threadIdx.x; e < 3 * p; e += kThreads) {
-      uint32_t lo, hi;
-      threefry2x32(k0, k1, base + (uint32_t)e, 0u, &lo, &hi);
-      const float r1 = u01(lo);
-      const float r2 = u01(hi);
-      const int k = e % 3;
-      const float x = s_pos[e];
-      const float v = w * s_vel[e] + prm.c1 * r1 * (s_pbest[e] - x) +
-                      prm.c2 * r2 * (s_gbest[k] - x);
-      s_vel[e] = v;
-      s_pos[e] = x + v;
+    for (int j = threadIdx.x; j < p; j += kThreads) {
+      float r1[3], r2[3];
+      step_uniforms(prm.philox, k0, k1, j, p, it, r1, r2);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int e = 3 * j + k;
+        const float x = s_pos[e];
+        const float v = w * s_vel[e] + prm.c1 * r1[k] * (s_pbest[e] - x) +
+                        prm.c2 * r2[k] * (s_gbest[k] - x);
+        s_vel[e] = v;
+        s_pos[e] = x + v;
+      }
     }
     evaluate(p);
     for (int j = threadIdx.x; j < p; j += kThreads) {
@@ -298,7 +203,7 @@ rollout_local_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
       }
     }
     __syncthreads();
-    block_argmin(s_pbc, p, &bc, &bi, red_v, red_i, red_nan);
+    block_argmin<kThreads>(s_pbc, p, &bc, &bi, red);
     if (threadIdx.x == 0) {
       if (bc < s_gcost) {
         for (int k = 0; k < 3; ++k) s_gbest[k] = s_pbest[3 * bi + k];
@@ -338,24 +243,21 @@ size_t ndt_rollout_local_smem_bytes(int n_pts, int population) {
 int ndt_rollout_local(const void* keys, const void* guesses, const void* devs,
                       const void* sten, const void* pts, void* out, int batch,
                       int n_pts, int population, int iterations, int radius,
-                      int early_exit, float half, float cell_side, float w,
+                      int early_exit, int philox, int exp2_mode, float half,
+                      float cell_side, float w,
                       float c1, float c2, float w_damping, float zdev0,
                       float zdev1, float zdev2, void* stream) {
   const size_t smem = smem_bytes(n_pts, population);
   cudaError_t err = cudaFuncSetAttribute(
       rollout_local_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  Params prm{n_pts, population, iterations, radius, early_exit, half, cell_side,
-             w, c1, c2, w_damping, zdev0, zdev1, zdev2};
+  Params prm{n_pts, population, iterations, radius, early_exit, philox, exp2_mode,
+             half, cell_side, w, c1, c2, w_damping, zdev0, zdev1, zdev2};
   rollout_local_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(keys), static_cast<const float*>(guesses),
       static_cast<const float*>(devs), static_cast<const float*>(sten),
       static_cast<const float*>(pts), static_cast<float*>(out), prm);
   return (int)cudaGetLastError();
-}
-
-const char* ndt_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

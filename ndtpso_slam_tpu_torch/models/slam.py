@@ -37,10 +37,7 @@ from ndtpso_slam_tpu_torch.models.pso import PsoResult, pso_solve
 from ndtpso_slam_tpu_torch.models.scan import Scan
 from ndtpso_slam_tpu_torch.ops import rng
 from ndtpso_slam_tpu_torch.ops.geometry import cell_index, transform_points
-from ndtpso_slam_tpu_torch.ops.rollout_local import (
-    pack_rollout_local_inputs,
-    pso_rollout_local,
-)
+from ndtpso_slam_tpu_torch.ops.rollout import solve_rollout_mode
 
 
 @dataclasses.dataclass
@@ -87,17 +84,20 @@ def init_slam(cfg: SlamConfig, initial_pose=(0.0, 0.0, 0.0), device="cuda") -> S
     )
 
 
-# Cost modes the port runs.  The JAX package's other modes (fast*, the
-# frozen rollout* kernels, rollout_local_turbo) are listed in ROADMAP.
-SLAM_COST_MODES = ("exact", "local_exact", "rollout_local")
+# The JAX package's cost modes (models/slam.py:SLAM_COST_MODES).
+SLAM_COST_MODES = (
+    "exact", "fast", "fast_local", "local_exact",
+    "rollout", "rollout_bf16", "rollout_turbo", "rollout_turbo_bf16",
+    "rollout_local", "rollout_local_turbo",
+)
 
 
 def check_supported(cfg: SlamConfig) -> None:
     """Raise NotImplementedError for configuration the port cannot run yet."""
     if cfg.cost_mode not in SLAM_COST_MODES:
         raise NotImplementedError(
-            f"cost_mode {cfg.cost_mode!r} is not ported yet (ROADMAP: fast*/rollout* "
-            f"modes, K1 turbo); the port runs {SLAM_COST_MODES}"
+            f"cost_mode {cfg.cost_mode!r} is not a cost mode of the JAX package "
+            f"(ROADMAP lists what is left to port); expected one of {SLAM_COST_MODES}"
         )
     if cfg.optimizer != "pso":
         raise NotImplementedError(
@@ -112,10 +112,25 @@ def check_supported(cfg: SlamConfig) -> None:
 
 
 def make_cost_fn(snap: ndt_map.MapSnapshot, scan: Scan, cfg: SlamConfig, guess=None):
-    """Batched cost closure for the solver (``exact`` and ``local_exact``)."""
+    """Batched cost closure for the solver, per the configured cost mode
+    (the modes that do not run a whole-solve kernel)."""
     if cfg.cost_mode == "exact":
         return lambda poses, bind: cost_mod.ndt_cost(
             poses, snap, scan.points, scan.valid, cfg.map
+        )
+    if cfg.cost_mode == "fast":
+        return lambda poses, bind: cost_mod.bound_cost(
+            poses, cost_mod.bind_points(bind, snap, scan.points, scan.valid, cfg.map)
+        )
+    if cfg.cost_mode == "fast_local":
+        # The stencil gathered once at the guess; the incumbent rebinds
+        # within it every iteration.
+        nbr = cost_mod.bind_neighborhood(
+            guess, snap, scan.points, scan.valid, cfg.map,
+            radius=cost_mod.DEFAULT_STENCIL_RADIUS,
+        )
+        return lambda poses, bind: cost_mod.bound_cost(
+            poses, cost_mod.bind_points_local(bind, nbr, scan.points, cfg.map)
         )
     if cfg.cost_mode == "local_exact":
         nbr = cost_mod.bind_neighborhood(
@@ -129,17 +144,12 @@ def make_cost_fn(snap: ndt_map.MapSnapshot, scan: Scan, cfg: SlamConfig, guess=N
 
 
 def _align_rollout(key, guess, deviation, snap, scan, cfg: SlamConfig) -> PsoResult:
-    """One solve through the rollout kernel (``pso_rollout_local``)."""
-    nbr = cost_mod.bind_neighborhood(
-        guess, snap, scan.points, scan.valid, cfg.map,
-        radius=cost_mod.DEFAULT_STENCIL_RADIUS,
-    )
-    sten, pts = pack_rollout_local_inputs(nbr, scan.points)
+    """One B = 1 solve through the whole-solve kernel of a ``rollout*``
+    cost mode (``ops/rollout.py:solve_rollout_mode``)."""
     keys = torch.tensor([[key[0], key[1]]], dtype=torch.int64).to(guess.device)
-    pose, c = pso_rollout_local(
-        keys, guess[None].to(torch.float32), deviation.to(torch.float32)[None],
-        sten[None], pts[None], cfg.pso, cfg.map,
-        radius=cost_mod.DEFAULT_STENCIL_RADIUS, early_exit=cfg.solver_early_exit,
+    pose, c = solve_rollout_mode(
+        cfg.cost_mode, keys, guess[None], deviation[None], snap, scan.points[None],
+        scan.valid[None], cfg.map, cfg.pso, cfg.solver_early_exit,
     )
     return PsoResult(pose=pose[0].to(guess.dtype), cost=c[0])
 
@@ -159,7 +169,7 @@ def align(
         deviation = torch.tensor(cfg.first_deviation, dtype=dtype, device=guess.device)
     else:
         deviation = torch.abs(astate.pose_diff * cfg.deviation_scale)
-    if cfg.cost_mode == "rollout_local":
+    if cfg.cost_mode.startswith("rollout"):
         result = _align_rollout(key, guess, deviation, snap, scan, cfg)
     else:
         result = pso_solve(

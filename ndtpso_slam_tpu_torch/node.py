@@ -5,8 +5,8 @@ Port of the single-session part of ``ndtpso_slam_tpu/node.py``
 (``.npz``) or any caller, poses go to registered callbacks, and the run's
 poses are written as ``<out>.pose.csv``.  Options the port cannot run yet
 (occupancy grid, recovery, sparse ring, GLIR, frontal-point decimation, the
-stencil patch, cost modes other than exact / local_exact / rollout_local)
-raise NotImplementedError naming their ROADMAP item.
+stencil patch) raise NotImplementedError naming their ROADMAP item.  Every
+cost mode of the JAX package runs (``models/slam.py:SLAM_COST_MODES``).
 
 Run over a log on the GPU::
 
@@ -54,7 +54,7 @@ class NodeConfig:
     window_slots: int = cfgm.NDT_WINDOW_SIZE
     max_beams: int = 1024
     # local_exact: per-particle stencil rebind; rollout_local runs the same
-    # solve as one CUDA kernel launch.
+    # solve as one CUDA kernel launch (models/slam.py:SLAM_COST_MODES).
     cost_mode: str = "local_exact"
     optimizer: str = "pso"
     seed: int = 42

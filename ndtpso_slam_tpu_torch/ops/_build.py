@@ -1,0 +1,117 @@
+"""One build route for the port's CUDA kernels.
+
+Each kernel library is one source under ``csrc/`` (which may include the
+shared ``csrc/*.cuh`` headers), compiled by ``nvcc`` into a shared library
+with a plain C interface and bound with ``ctypes``.  A library is built at
+first use into ``ndtpso_slam_tpu_torch/_build/``, named by a hash of its
+source, the headers and the flags, so an edit rebuilds it and nothing else
+does.  :func:`build` compiles several libraries at once, one ``nvcc`` each,
+all started together.  A failed build raises with nvcc's output: there is no
+fallback to the plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Callable, List
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+# No --use_fast_math (approximate expf/exp2f/sinf/cosf) and no FMA
+# contraction, so the kernels round every + - * / as the plain versions do.
+# -Xptxas -v writes each kernel's registers, shared memory and spills to the
+# build log beside the library.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelLib:
+    """A kernel library: its name, its source under ``csrc/``, and a function
+    that sets the ctypes signatures of its C entries."""
+
+    name: str
+    source: str
+    bind: Callable[[ctypes.CDLL], None]
+
+    def path(self) -> Path:
+        data = (CSRC / self.source).read_bytes()
+        for header in sorted(CSRC.glob("*.cuh")):
+            data += header.read_bytes()
+        tag = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        return BUILD_DIR / f"{self.name}-{tag}.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found (looked on PATH and in CUDA_HOME/bin)")
+    return str(path)
+
+
+def build(*libs: KernelLib) -> List[Path]:
+    """Compile every library that is not built yet, one ``nvcc`` process each,
+    all running at once.  Returns the libraries' paths; each build log is the
+    path with the suffix ``.log``."""
+    jobs = []
+    for lib in libs:
+        path = lib.path()
+        if path.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / lib.source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((path, tmp, cmd, proc))
+    failed = []
+    for path, tmp, cmd, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+            continue
+        path.with_suffix(".log").write_text(log)
+        os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [lib.path() for lib in libs]
+
+
+@functools.lru_cache(maxsize=None)
+def load(lib: KernelLib) -> ctypes.CDLL:
+    """The library, built if needed, with its signatures set."""
+    (path,) = build(lib)
+    cdll = ctypes.CDLL(str(path))
+    cdll.ndt_cuda_error_string.argtypes = [ctypes.c_int]
+    cdll.ndt_cuda_error_string.restype = ctypes.c_char_p
+    lib.bind(cdll)
+    return cdll
+
+
+def u32_words(keys, device):
+    """Key words [B, 2] as the kernels take them: u32 words carried as their
+    int32 bit patterns, contiguous on ``device``."""
+    return (keys.to(device).to(torch.int64) & 0xFFFFFFFF).to(torch.int32).contiguous()
+
+
+def check_launch(cdll: ctypes.CDLL, err: int, name: str) -> None:
+    """Raise if a C entry reported a CUDA error for its launch."""
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: {cdll.ndt_cuda_error_string(err).decode()}"
+        )

@@ -19,6 +19,14 @@ PyTorch on the CPU has no uint32 shifts, so every 32-bit word lives in an
 int64 lane masked with ``0xFFFFFFFF``: the values stay below 2^32 and the
 largest intermediate (a word shifted left by at most 29) below 2^61, so no
 lane ever overflows.
+
+The turbo solver modes (``rng_mode="native"``) draw from Philox4x32-10
+instead: the JAX package's turbo modes use the TPU's hardware generator,
+which has no counterpart on a GPU and whose stream is not stable even across
+TPU versions, so the port defines its own counter layout (see
+:func:`philox_uniforms`) and holds turbo solves to accuracy gates, never to
+the JAX package's bits.  The CUDA kernels consume the same stream bit for
+bit.
 """
 
 from __future__ import annotations
@@ -103,3 +111,64 @@ def pso_iter_pairs(i, population: int, device=None):
     base = pso_iter_pair_base(population) + i * population * 3
     offs = torch.arange(population * 3, dtype=torch.int64, device=device)
     return ((base + offs) & _M32).reshape(population, 3)
+
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(m, x):
+    """(hi, lo) words of the 64-bit product of the u32 words m and x.
+
+    The product reaches 2^64 and would overflow an int64 lane, so x is split
+    into 16-bit halves: no partial sum reaches 2^49, and the result is exact
+    on Python ints and int64 tensors alike."""
+    a = m * (x & 0xFFFF)
+    b = m * (x >> 16)
+    s = a + ((b & 0xFFFF) << 16)
+    return (b >> 16) + (s >> 32), s & _M32
+
+
+def _philox(k0, k1, c0, c1, c2, c3):
+    """Philox4x32-10 (Salmon et al., SC'11; Random123's philox4x32_10) on u32
+    words held as Python ints or int64 tensors."""
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W[0]) & _M32
+            k1 = (k1 + _PHILOX_W[1]) & _M32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def philox4x32(key, c0, c1, c2, c3):
+    """Philox4x32-10.  key: (k0, k1) u32 words; c0..c3 u32 word arrays
+    (broadcastable).  Returns four int64 tensors of u32 words on c0's
+    device."""
+    c0 = _word(c0)
+    dev = c0.device
+    w = lambda v: _word(v, dev)
+    return _philox(w(key[0]), w(key[1]), c0, w(c1), w(c2), w(c3))
+
+
+# Philox counter layout of a PSO solve (turbo modes).  Each counter yields
+# four words; words 0..2 drive dimensions x, y, theta and word 3 is unused.
+PHILOX_INIT = 0  # counter (j, 0, PHILOX_INIT, 0): particle j's initial position
+PHILOX_SEED = 1  # counter (0, 0, PHILOX_SEED, 0): the global-best seed's jitter
+PHILOX_R1 = 0  # counter (j, i + 1, PHILOX_R1, 0): iteration i, particle j, r1
+PHILOX_R2 = 1  # counter (j, i + 1, PHILOX_R2, 0): iteration i, particle j, r2
+
+
+def philox_uniforms(key, particle, step, select, dtype=torch.float32):
+    """Uniforms [..., 3] in [0, 1) from the counters (particle, step, select,
+    0), broadcast over the argument shapes.
+
+    The PSO layout (``rng_mode="native"``): ``step`` is 0 at init and i + 1 in
+    iteration i; ``select`` picks the draw (``PHILOX_*`` above).  Words 0..2
+    become the uniforms ``(bits >> 8) * 2^-24``, as in the Threefry stream."""
+    particle = _word(particle)
+    x = philox4x32(key, particle, step, select, 0)
+    shape = torch.broadcast_shapes(*(v.shape for v in x))
+    words = torch.stack([v.expand(shape) for v in x[:3]], dim=-1)
+    return (words >> 8).to(dtype) * U01_SCALE

@@ -28,6 +28,16 @@ _PER_CELL = tuple(
 )
 
 
+def snapshot_from_numpy(arrays: Dict[str, np.ndarray], device="cuda") -> ndt_map.MapSnapshot:
+    """A map snapshot on ``device`` from {"mean", "inv_cov", "built"} numpy
+    arrays, one snapshot ([C, ...]) or a stack of them ([B, C, ...], as
+    ``solve_batch`` takes)."""
+    dev = resolve_device(device)
+    return ndt_map.MapSnapshot(
+        **{k: torch.from_numpy(np.array(arrays[k])).to(dev) for k in ("mean", "inv_cov", "built")}
+    )
+
+
 def slam_state_to_numpy(state: SlamState) -> Dict[str, np.ndarray]:
     """The state as {JAX field path: numpy array}; ``og`` (always None in the
     port) is left out."""

@@ -15,6 +15,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,7 +33,11 @@ from ndtpso_slam_tpu_torch.models import scan as tscan
 from ndtpso_slam_tpu_torch.models import slam as tslam
 from ndtpso_slam_tpu_torch.node import NodeConfig, SlamNode
 from ndtpso_slam_tpu_torch.ops import rollout_local as trl
-from ndtpso_slam_tpu_torch.utils.state import slam_state_from_numpy, slam_state_to_numpy
+from ndtpso_slam_tpu_torch.utils.state import (
+    slam_state_from_numpy,
+    slam_state_to_numpy,
+    snapshot_from_numpy,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASE_KEY = (3, 9)
@@ -215,8 +220,8 @@ def test_default_device_is_cuda_and_raises_without_gpu(log):
     (dict(ring_rows=64), "A5"),
     (dict(prefer_frontal_points=True), "A4"),
     (dict(patch_range_m=30.0), "A6"),
-    (dict(cost_mode="fast"), "ROADMAP"),
-    (dict(cost_mode="rollout_local_turbo"), "ROADMAP"),
+    (dict(cost_mode="fast", recovery=True), "ROADMAP"),
+    (dict(cost_mode="rollout_local_turbo", optimizer="glir"), "ROADMAP"),
 ])
 def test_unported_options_raise(override, roadmap):
     with pytest.raises(NotImplementedError, match=roadmap):
@@ -242,3 +247,67 @@ def test_npz_log_roundtrip(log, tmp_path):
     assert got.poses is None and got.range_max == log.range_max
     with pytest.raises(NotImplementedError, match="A10"):
         load_log(str(tmp_path / "l.bag"))
+
+
+@pytest.fixture(scope="module")
+def ellipse_world():
+    """The JAX package's rollout test map (tests/test_rollout.py), built by
+    the port (bit-equal to the JAX map on the CPU), and its 200 points
+    padded to 256 beams."""
+    from ndtpso_slam_tpu_torch.models import ndt_map as tmap
+
+    mc = tcfg.MapConfig(size_m=32.0, cell_side_m=1.0, window_slots=4)
+    rs = np.random.RandomState(0)
+    t = np.linspace(0, 2 * np.pi, 200, endpoint=False)
+    pts = (np.stack([9 * np.cos(t), 6 * np.sin(t)], -1) + rs.normal(0, 0.05, (200, 2))).astype(np.float32)
+    state = tmap.init_map(mc, device="cpu")
+    for _ in range(2):
+        noisy = pts + rs.normal(0, 0.02, pts.shape).astype(np.float32)
+        tmap.add_points(state, mc, torch.from_numpy(noisy), torch.ones(200, dtype=torch.bool))
+        tmap.build(state, mc)
+    snap = tmap.snapshot(state, mc)
+    points = np.zeros((256, 2), np.float32)
+    points[:200] = pts
+    valid = np.zeros(256, bool)
+    valid[:200] = True
+    return dict(snap={k: getattr(snap, k).numpy() for k in ("mean", "inv_cov", "built")},
+                points=points, valid=valid)
+
+
+@pytest.mark.parametrize("mode", [
+    "rollout", "fast", "fast_local", "rollout_turbo", "rollout_local_turbo",
+])
+def test_slam_align_runs_reference_budget(ellipse_world, mode):
+    """Mirror of tests/test_rollout.py::test_slam_rollout_runs_reference_budget
+    for the modes the align now takes: the node's 50-particle budget through
+    align from a cold start.  Against the JAX run, poses to the frozen-mode
+    tolerance (5e-3, tests/test_rollout.py), and both re-score the winner
+    with the exact cost; the turbo modes (Philox draws, not the TPU's
+    stream) are held to the accuracy gate only."""
+    from ndtpso_slam_tpu.models import ndt_map as jmap
+    from ndtpso_slam_tpu.models.scan import Scan as JScan
+
+    kw = lambda m: dict(pso=m.PSOConfig(iterations=8, population=50),
+                        map=m.MapConfig(size_m=32.0, cell_side_m=1.0, window_slots=4),
+                        scan=m.ScanConfig(max_beams=256), cost_mode=mode)
+    jc, tc = jcfg.SlamConfig(**kw(jcfg)), tcfg.SlamConfig(**kw(tcfg))
+    w = ellipse_world
+    tastate = tslam.AlignState(prev_pose=torch.zeros(3), pose_diff=torch.zeros(3), iter=0)
+    _, tres = tslam.align(
+        (5, 7), tastate, snapshot_from_numpy(w["snap"], "cpu"),
+        tscan.Scan(points=torch.from_numpy(w["points"]), valid=torch.from_numpy(w["valid"])),
+        torch.zeros(3), tc)
+    pose = tres.pose.numpy()
+    assert np.abs(pose[:2]).max() < 0.1 and abs(pose[2]) < 0.05
+    assert np.isfinite(float(tres.cost))
+    if "turbo" in mode:
+        return
+    jastate = jslam.AlignState(prev_pose=jnp.zeros(3, jnp.float32),
+                               pose_diff=jnp.zeros(3, jnp.float32), iter=jnp.asarray(0, jnp.int32))
+    _, jres = jax.jit(jslam.align, static_argnums=5)(  # as the JAX SLAM step runs it
+        (np.uint32(5), np.uint32(7)), jastate,
+        jmap.MapSnapshot(**{k: jnp.asarray(v) for k, v in w["snap"].items()}),
+        JScan(points=jnp.asarray(w["points"]), valid=jnp.asarray(w["valid"])),
+        jnp.zeros(3, jnp.float32), jc)
+    np.testing.assert_allclose(pose, np.asarray(jres.pose), atol=5e-3)
+    np.testing.assert_allclose(float(tres.cost), float(jres.cost), rtol=1e-4, atol=1e-3)
