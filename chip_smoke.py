@@ -5,7 +5,7 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. Device and build: requires a CUDA device, prints the card's name and power
-   limit (nvidia-smi), builds the three kernel libraries from csrc/ (one nvcc
+   limit (nvidia-smi), builds the five kernel libraries from csrc/ (one nvcc
    each, all at once) and prints what ptxas reports of each kernel.
 2. Kernel against its plain PyTorch version: B=3 solves, N=384 points,
    P in {50, 200}, 10 iterations, on a small synthetic map.
@@ -36,6 +36,26 @@ Phases (any failure exits non-zero and prints no result line):
       rollout_local_turbo at B=16, the same widths: finite results, launch
       counts, and the two kernels not yet timed, against their plain
       versions as in 5b.
+6. The variant studies ported from the TPU (ndtpso_slam_tpu_torch/experiments/),
+   each driven once through the run() its entry point calls, at the TPU
+   script's shapes, with the launch counts set to 0 just before and read
+   just after; then every variant's kernel output held against its plain
+   version, timed, and its bound:
+   a. kernel_variants: the six scoring configurations, B=64, N=384, P=4096;
+   b. rollout_score_variants: the five score-block variants, B=64, I=50,
+      c and carry, and their time at I and I/2;
+   c. pallas_variants: the nine variant/tile pairs inside pso_solve_batch
+      at B=32, P=4096, I=50, beside the plain baseline (solves/s, cost
+      maxdiff, median pose error; a variant less accurate than the
+      baseline is printed as a finding), each kernel on the population
+      call's own inputs against its plain version and float64;
+   d. scatter_unique_ab: the row scatter at W=2 over 2.88 M rows and at
+      W=128 over 360,001 rows, bit-equal to index_copy_ on unique ids and
+      to its plain version on duplicate ids, beside the library calls.
+
+Each kernel's entry in the kernels line carries its bound: the larger of
+the bytes its function must move over the HBM rate and its operations
+over the peak rate of the pipe they need (below).
 
 The last two lines of standard output are a JSON object describing each
 kernel, then {"ok": true, "device": {...}}.
@@ -72,6 +92,53 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+# Peak rates of one H100 SXM at its 700 W limit: NVIDIA's data sheet (HBM,
+# FP32 outside the tensor cores, dense TF32 and bf16 tensor cores) and, for
+# exp/exp2, the special-function units: 16 lanes per SM (Hopper white paper)
+# x 132 SMs x the 1.98 GHz clock that the 67 TFLOP/s FP32 figure implies.
+HBM_BYTES_S = 3.35e12
+PEAK = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12, "sfu": 132 * 16 * 1.98e9}
+
+
+def bound(nbytes, **ops):
+    """The least time the card could take for the work: (ms, "bytes" or
+    "operations"), the larger of nbytes over the HBM rate and, over the
+    pipes named in ops (fp32, tf32, bf16, sfu), the slowest pipe's
+    operations over its peak."""
+    t_ops = max((v / PEAK[k] for k, v in ops.items()), default=0.0)
+    t_bytes = nbytes / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def score_ops(pairs, features, zpipe="fp32", rpipe="fp32", masked=True):
+    """Operations of the frozen score over `pairs` (point, particle) pairs:
+    the contraction (2 per feature) on zpipe, -z/2 and max(z, 0) on the
+    FP32 pipes, the point sum (a multiply and an add per pair with a mask,
+    an add without) on rpipe, one exp per pair on the special-function
+    units."""
+    ops = {"fp32": 2.0 * pairs, "sfu": float(pairs)}
+    ops[zpipe] = ops.get(zpipe, 0.0) + 2.0 * features * pairs
+    ops[rpipe] = ops.get(rpipe, 0.0) + (2.0 if masked else 1.0) * pairs
+    return ops
+
+
+# rollout_local's point evaluation (csrc/rollout_local.cu): the rigid
+# transform (8), the cell binning (4), the residual (2), the quadratic form
+# (9), -q/2 and the sum (2) on the FP32 pipes, one exp.
+ROLLOUT_LOCAL_FLOPS = 25
+
+
+def _nbytes(*tensors):
+    return float(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def _entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None, **extra):
+    """One kernel's entry of the kernels line."""
+    return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                library_ms=library_ms, **extra)
+
+
 def phase_device():
     import torch
 
@@ -83,10 +150,12 @@ def phase_device():
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
-    from ndtpso_slam_tpu_torch.ops import _build, rollout, rollout_local, score
+    from ndtpso_slam_tpu_torch.ops import (_build, rollout, rollout_local, row_scatter, score,
+                                           score_variants)
 
     t0 = time.perf_counter()
-    paths = _build.build(rollout_local.LIB, rollout.LIB, score.LIB)
+    paths = _build.build(rollout_local.LIB, rollout.LIB, score.LIB, score_variants.LIB,
+                         row_scatter.LIB)
     print(f"[phase 1] built {', '.join(p.name for p in paths)} in "
           f"{time.perf_counter() - t0:.2f} s")
     for path in paths:
@@ -242,18 +311,12 @@ def phase_main():
 
 
 def _events_ms(fn, reps):
+    """ms per call over reps calls after a warm one (CUDA events)."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from ndtpso_slam_tpu_torch.experiments import time_ms
+
+    return time_ms(fn, reps, torch.device("cuda"))
 
 
 def phase_main_kernel(node, lg):
@@ -281,9 +344,55 @@ def phase_main_kernel(node, lg):
     dpose, dcost = compare_kernel(*args)
     ms = _events_ms(lambda: rl.pso_rollout_local(*args), 50)
     plain_ms = _events_ms(lambda: rl.pso_rollout_local_reference(*args), 5)
+    bnd = _rollout_local_bound(sten, pts, cfg.pso.population, [cfg.pso.iterations])
     print(f"[phase 4] kernel vs plain on the next solve's inputs: max |dpose| "
-          f"{dpose:.3e} max |dcost| {dcost:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms")
-    return max(dpose, dcost), ms, plain_ms
+          f"{dpose:.3e} max |dcost| {dcost:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bnd[0]:.6f} ms ({bnd[1]}; one solve: one SM of 132, latency-bound)")
+    return max(dpose, dcost), ms, plain_ms, bnd
+
+
+def _evaluations(population, live_iterations):
+    """Particle evaluations of whole solves: the gbest seed, the population,
+    and the population again in each iteration a solve ran."""
+    return sum(1 + population * (1 + int(i)) for i in live_iterations)
+
+
+def _rollout_local_bound(sten, pts, population, live_iterations):
+    pairs = _evaluations(population, live_iterations) * pts.shape[-2]  # pts [B, N, 8]
+    return bound(_nbytes(sten, pts), fp32=ROLLOUT_LOCAL_FLOPS * pairs, sfu=pairs)
+
+
+def _rollout_bound(sten, pts, population, live_iterations, score_dtype="f32"):
+    """K2's bound: each evaluation scores the N points (15 features); bf16
+    operands could contract on the tensor cores."""
+    pairs = _evaluations(population, live_iterations) * pts.shape[-1]  # pts [B, 8, N]
+    zpipe = "bf16" if score_dtype == "bf16" else "fp32"
+    return bound(_nbytes(sten, pts), **score_ops(pairs, 15, zpipe, masked=False))
+
+
+def _live_iterations(binds, early_exit, iterations):
+    """Iterations each solve of a plain frozen solve ran, from the incumbents
+    its cost evaluations were bound at (ops/rollout.py:packed_frozen_cost):
+    calls 0 and 1 are the seed and the population, call 2 + i is iteration
+    i, bound at the incumbent of its start.  The incumbent moves exactly
+    when it improves, which resets the stall count
+    (models/pso.py:pso_solve_batch)."""
+    import torch
+
+    if early_exit <= 0:
+        return [iterations] * binds[0].shape[0]
+    g = torch.stack(binds[2:]).cpu()  # [iterations run, B, 3]
+    live = []
+    for s in range(g.shape[1]):
+        n, stale = 0, 0
+        for i in range(g.shape[0]):
+            if stale >= early_exit:
+                break
+            n += 1
+            if i + 1 < g.shape[0]:
+                stale = 0 if not torch.equal(g[i + 1, s], g[i, s]) else stale + 1
+        live.append(n)
+    return live
 
 
 # Phase 5: the frozen rollout kernel against its plain version.  The kernel
@@ -509,10 +618,13 @@ def _packed(world, local=False):
 def _launch_counts():
     from ndtpso_slam_tpu_torch.ops import rollout as ro
     from ndtpso_slam_tpu_torch.ops import rollout_local as rl
+    from ndtpso_slam_tpu_torch.ops import row_scatter as rsc
     from ndtpso_slam_tpu_torch.ops import score as sc
+    from ndtpso_slam_tpu_torch.ops import score_variants as sv
 
     return dict(rollout=ro.pso_rollout, rollout_local=rl.pso_rollout_local,
-                score=sc.fused_bound_scores)
+                score=sc.fused_bound_scores, score_variants=sv.score_variants,
+                score_block=sv.score_block, row_scatter=rsc.row_scatter)
 
 
 def _reset_counts():
@@ -551,9 +663,27 @@ def _profile(fn):
     return sum(e.count for e in kern), busy_us / 1e3, wall
 
 
+def _recorded_binds(fn):
+    """Runs fn with the plain frozen cost (ops/rollout.py:packed_frozen_cost)
+    recording the incumbent of each evaluation; returns (fn's result, the
+    incumbents)."""
+    from unittest import mock
+
+    from ndtpso_slam_tpu_torch.ops import rollout as ro
+
+    seen, cost = [], ro.packed_frozen_cost
+
+    def recording(poses, binds, *args, **kwargs):
+        seen.append(binds.detach().clone())
+        return cost(poses, binds, *args, **kwargs)
+
+    with mock.patch.object(ro, "packed_frozen_cost", recording):
+        return fn(), seen
+
+
 def phase_batch(world):
     """5b: solve_batch at full width.  Returns {kernel name: (launches, ms,
-    plain ms, max abs err)} for the kernels it times."""
+    plain ms, max abs err, bound)} for the kernels it times."""
     import torch
 
     from ndtpso_slam_tpu_torch.ops import rollout as ro
@@ -604,27 +734,40 @@ def phase_batch(world):
             plain = lambda: sc.fused_bound_scores_reference(*ops)
             shape = f"B={b} N=384 P={cfg.population}, one cost evaluation"
             derr = _check_score(ops, "5b", shape)
+            bnd = _score_bound(ops)
         else:
             packed = _packed(world)
             kw = dict(early_exit=ee, rng_mode="native" if "turbo" in mode else "threefry")
             kern = lambda: ro.pso_rollout(*packed, **kw)
             plain = lambda: ro.pso_rollout_reference(*packed, **kw)
-            derr = max(_compare_wide(mode, kern(), plain(), world["true"]))
-            shape = f"B={b} N=384 P={cfg.population} I={cfg.iterations} ee={ee}, one solve_batch"
+            ref, binds = _recorded_binds(plain)
+            derr = max(_compare_wide(mode, kern(), ref, world["true"]))
+            live = _live_iterations(binds, ee, cfg.iterations)
+            bnd = _rollout_bound(packed[3], packed[4], cfg.population, live)
+            shape = (f"B={b} N=384 P={cfg.population} I={cfg.iterations} ee={ee}, one solve_batch; "
+                     f"iterations run {sum(live)} of {b * cfg.iterations}")
         ms = _events_ms(kern, 3)
         plain_ms = _events_ms(plain, 1)
         print(f"[phase 5b] {kname} kernel vs plain ({shape}): max abs err {derr:.3e}; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms")
+              f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
         launches_main = counts["score" if kname == "score" else "rollout"]
-        out[kname] = (launches_main, ms, plain_ms, derr)
+        out[kname] = (launches_main, ms, plain_ms, derr, bnd)
     return out
+
+
+def _score_bound(ops):
+    """K3's bound: phit, w and mask read, the costs written, every
+    (point, particle) pair scored on the FP32 pipes."""
+    phit, w, mask = ops
+    b, f, p = phit.shape
+    return bound(_nbytes(phit, w, mask) + 4.0 * b * p, **score_ops(b * p * w.shape[1], f))
 
 
 def phase_batch_small(world):
     """5c: the other batch modes at B=16, the same widths: finite results
     and launch counts; rollout_bf16 and rollout_local_turbo against their
     plain versions, timed.  Returns {kernel name: (launches, ms, plain ms,
-    max abs err)}."""
+    max abs err, bound)}."""
     import torch
 
     from ndtpso_slam_tpu_torch.ops import rollout as ro
@@ -655,6 +798,8 @@ def phase_batch_small(world):
             derr = max(_compare_wide(mode, kern(), plain(), small["true"]))
             name = "rollout_bf16"
             lc = counts["rollout"]
+            bnd = _rollout_bound(packed[3], packed[4], cfg.population,
+                                 [cfg.iterations] * BATCH_SMALL, "bf16")
         elif mode == "rollout_local_turbo":
             packed = _packed(small, local=True)
             kern = lambda: rl.pso_rollout_local(*packed, rng_mode="native")
@@ -662,15 +807,303 @@ def phase_batch_small(world):
             derr = max(_compare_wide(mode, kern(), plain(), small["true"]))
             name = "rollout_local_turbo"
             lc = counts["rollout_local"]
+            bnd = _rollout_local_bound(packed[3], packed[4], cfg.population,
+                                       [cfg.iterations] * BATCH_SMALL)
         else:
             continue
         ms = _events_ms(kern, 3)
         plain_ms = _events_ms(plain, 1)
         print(f"[phase 5c] {name} kernel vs plain (B={BATCH_SMALL} N=384 P={cfg.population} "
               f"I={cfg.iterations}): max abs err {derr:.3e}; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.3f} ms")
-        out[name] = (lc, ms, plain_ms, derr)
+              f"plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        out[name] = (lc, ms, plain_ms, derr, bnd)
     return out
+
+
+# Phase 6: a scoring variant against its plain version.  Both make the same
+# roundings, so they differ by the order of the sums (rtol 1e-5, atol 1e-4:
+# the scoring kernel's own tolerance) and, where a score is rounded (the
+# tensor-core reductions, the score block's bf16all), by the few terms whose
+# z the two sum orders put on either side of a rounding boundary.  Such a
+# flip moves one term by one ulp of a score <= 1 times a mask of 0 or 1:
+# 2^-11 for TF32, 2^-8 for bf16, up to 2^-7 for bf16all (its max(z, 0),
+# exponent and score are each rounded).  At these shapes the card shows at
+# most one flip per cost (3.906e-03 in E1 bf16 and E3 bf16all, PERF.md);
+# each limit allows FLIPS.
+FLIPS = 4
+VARIANT_TOL = {"cores": (1e-5, 1e-4), "tf32": (1e-5, 1e-4 + FLIPS * 2.0**-11),
+               "bf16": (1e-5, 1e-4 + FLIPS * 2.0**-8)}
+BLOCK_TOL = {"bf16all": (1e-5, 1e-4 + FLIPS * 2.0**-7)}
+SRC = "ndtpso_slam_tpu_torch/csrc/"
+
+
+def _variant_tol(zroute, reduce):
+    if reduce == "cores":
+        return VARIANT_TOL["cores"]
+    return VARIANT_TOL["bf16" if zroute == "bf16" else "tf32"]
+
+
+def _variant_ops(pairs, features, zroute, reduce, masked=True):
+    zpipe = {"bf16": "bf16", "tf32": "tf32"}.get(zroute, "fp32")
+    rpipe = ("bf16" if zroute == "bf16" else "tf32") if reduce == "mma" else "fp32"
+    return score_ops(pairs, features, zpipe, rpipe, masked)
+
+
+def _study_entry(name, source, replaces, launches, variants, ref, library_ms=None):
+    """A study's entry: the numbers of its reference variant, the largest
+    error of any variant, and every variant under "variants"."""
+    v = variants[ref]
+    return _entry(name, SRC + source, replaces, launches,
+                  max(x["max_abs_err"] for x in variants.values()), v["ms"], v["plain_ms"],
+                  (v["bound_ms"], v["bound_by"]), library_ms, reference_variant=ref,
+                  variants=variants)
+
+
+def _drive(study, run, kernel, want):
+    """Runs a study with every launch count set to 0 just before and read
+    just after; its kernel must have launched `want` times and no other.
+    Returns (the study's result, its launches)."""
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    res = run()
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    expect = {k: (want if k == kernel else 0) for k in counts}
+    check(counts == expect, f"{study}: launches {counts}, expected {expect}")
+    return res, counts[kernel]
+
+
+def phase_kernel_variants(dev):
+    """6a: experiments/kernel_variants.py's six configurations."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.experiments import kernel_variants as kv
+    from ndtpso_slam_tpu_torch.ops import score_variants as sv
+    from ndtpso_slam_tpu_torch.ops.score import fused_bound_scores
+
+    res, launches = _drive("kernel_variants", lambda: kv.run(dev), "score_variants",
+                           len(kv.CONFIGS) * (1 + kv.I))
+    phit, w, mask = kv.inputs(dev)
+    b, f, p = phit.shape
+    nbytes = _nbytes(phit, w, mask) + 4.0 * b * p
+    variants = {}
+    for name, zroute, reduce, tile in kv.CONFIGS:
+        out, diff, ms = res[name]
+        got = out[:, 0, :]
+        ref = sv.score_variants_reference(phit, w, mask, zroute, reduce)
+        rtol, atol = _variant_tol(zroute, reduce)
+        err = (got - ref).abs().max().item()
+        check(torch.isfinite(got).all() and torch.allclose(got, ref, rtol=rtol, atol=atol),
+              f"kernel_variants {name}: max |kernel - plain| {err:.3e}")
+        plain_ms = _events_ms(lambda: sv.score_variants_reference(phit, w, mask, zroute, reduce), 3)
+        bms, by = bound(nbytes, **_variant_ops(b * p * w.shape[1], f, zroute, reduce))
+        variants[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bms, bound_by=by,
+                              diff_vs_v0=diff)
+        print(f"[phase 6a] {name} (B={b} N={w.shape[1]} P={p}): max |kernel - plain| {err:.3e}, "
+              f"vs v0 {diff:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bms:.4f} ms ({by}, {100 * bms / ms:.1f}% of it)")
+    # K3 (ops/score.py), the f32 scoring kernel the port ships, on the same
+    # inputs: the rate the f32 and tensor-core routes are weighed against.
+    k3 = lambda: fused_bound_scores(phit, w, mask)
+    got = k3()
+    ref = sv.score_variants_reference(phit, w, mask, "f32", "cores")
+    err = (got - ref).abs().max().item()
+    check(torch.allclose(got, ref, *VARIANT_TOL["cores"]), f"K3 on E1's inputs: max |K3 - plain| {err:.3e}")
+    k3_ms = _events_ms(k3, kv.I)
+    ms_of = {name: variants[name]["ms"] for name in variants}
+    print(f"[phase 6a] K3 score on the same inputs: {k3_ms:.4f} ms (max |K3 - plain| {err:.3e}); "
+          + ", ".join(f"{name.split()[0]} {k3_ms / ms:.2f}x K3's rate" for name, ms in ms_of.items()))
+    entry = _study_entry("kernel_variants", "score_variants.cu", "experiments/kernel_variants.py:25",
+                         launches, variants, kv.CONFIGS[0][0])
+    entry["k3_same_inputs_ms"] = k3_ms
+    return entry
+
+
+def phase_rollout_score_variants(dev):
+    """6b: experiments/rollout_score_variants.py's five score-block variants."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.experiments import rollout_score_variants as rsv
+    from ndtpso_slam_tpu_torch.ops import score_variants as sv
+
+    res, launches = _drive("rollout_score_variants", lambda: rsv.run(dev), "score_block",
+                           len(rsv.VARIANTS) * (1 + rsv.REPS + 1 + rsv.REPS))
+    phit, w = rsv.inputs(dev)
+    b, f, p = phit.shape
+    variants = {}
+    for name in rsv.VARIANTS:
+        carry, c, ms, ms_half = res[name]
+        rcarry, rc = sv.score_block_reference(phit, w, rsv.I, name)
+        rtol, atol = BLOCK_TOL.get(name, VARIANT_TOL["cores"])
+        err = (c - rc).abs().max().item()
+        check(torch.isfinite(c).all() and torch.allclose(c, rc, rtol=rtol, atol=atol)
+              and torch.equal(carry, rcarry) and bool((carry == 0).all()),
+              f"rollout_score_variants {name}: max |c - plain| {err:.3e}, carry {carry[:4].tolist()}")
+        check(ms > 1.5 * ms_half, f"rollout_score_variants {name}: {ms:.3f} ms at I={rsv.I}, "
+              f"{ms_half:.3f} ms at I/2: the iterations do not serialise")
+        plain_ms = _events_ms(lambda: sv.score_block_reference(phit, w, rsv.I, name), 1)
+        zroute = "bf16" if name.startswith("bf16") else "f32"
+        ops = _variant_ops(b * p * w.shape[1] * rsv.I, f, zroute, "cores", masked=False)
+        bms, by = bound(_nbytes(phit, w) + 4.0 * b * (p + 1), **ops)
+        variants[name] = dict(ms=ms, ms_half_iterations=ms_half, plain_ms=plain_ms,
+                              max_abs_err=err, bound_ms=bms, bound_by=by)
+        print(f"[phase 6b] {name} (B={b} N={w.shape[1]} P={p} I={rsv.I}): max |c - plain| "
+              f"{err:.3e}, carry 0; kernel {ms:.4f} ms ({ms_half:.4f} ms at I={rsv.I // 2}), "
+              f"plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}, {100 * bms / ms:.1f}% of it)")
+    return _study_entry("rollout_score_variants", "score_variants.cu",
+                        "experiments/rollout_score_variants.py:22", launches, variants, "base")
+
+
+def _exact_variant_scores(phit, w, mask, zroute):
+    """float64 scores of a variant's (rounded) operands, phit [B, 16, P]."""
+    from ndtpso_slam_tpu_torch.ops import score_variants as sv
+
+    if zroute == "bf16":
+        phit, w = sv.bf16_round(phit), sv.bf16_round(w)
+    elif zroute == "tf32":
+        phit, w = sv.tf32_round(phit), sv.tf32_round(w)
+    z = w.double() @ phit.double()
+    return -(mask.double()[:, None, :] @ (-0.5 * z.clamp(min=0.0)).exp())[:, 0, :]
+
+
+def phase_pallas_variants(dev):
+    """6c: experiments/pallas_variants.py's nine variants in the PSO loop."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.experiments import pallas_variants as pv
+    from ndtpso_slam_tpu_torch.models import cost, pso
+    from ndtpso_slam_tpu_torch.ops import score_variants as sv
+
+    calls = (1 + 1 + pv.REPS) * (pv.ITERS + 2)  # warm, timed pair; seed, population, iterations
+    res, launches = _drive("pallas_variants", lambda: pv.run(dev), "score_variants",
+                           len(pv.VARIANTS) * len(pv.TILES) * calls)
+    base = res[pv.BASELINE]
+    check(base["med_xy"] < GATE_MEDIAN_XY_M and base["med_th"] < GATE_MEDIAN_TH_RAD,
+          f"pallas_variants baseline: median |xy| {base['med_xy']:.4f} m, |th| {base['med_th']:.5f}")
+    print(f"[phase 6c] {pv.BASELINE} (B={pv.B} P={pv.P} I={pv.ITERS}): {base['ms']:.1f} ms/batch, "
+          f"{base['solves_s']:.1f} solves/s, median |xy| {base['med_xy']:.4f} m, "
+          f"|th| {base['med_th']:.5f} rad")
+
+    # The population call's own inputs: binds at the guesses, its poses.
+    wd = pv.world(dev)
+    _, u_p = pso._batch_draws(wd["keys"], None, pv.P, torch.float32, dev, "threefry")
+    poses = wd["guesses"][:, None, :] + (2.0 * u_p - 1.0) * wd["devs"][:, None, :]
+    bound_scan = cost.bind_points(wd["guesses"], wd["snaps"], wd["points"], wd["valid"],
+                                  wd["map_cfg"])
+    phit = sv.pad16(cost.pose_features_t(poses, bound_scan.bind_pose), 1).contiguous()
+    w, mask = sv.pad16(bound_scan.w, 2).contiguous(), bound_scan.mask
+    b, f, p = phit.shape
+    nbytes = _nbytes(phit, w, mask) + 4.0 * b * p
+    variants = {}
+    for name, (zroute, reduce) in pv.VARIANTS.items():
+        exact = _exact_variant_scores(phit, w, mask, zroute)
+        for tile in pv.TILES:
+            key = f"{name}_t{tile}"
+            kern = lambda: sv.score_variants(phit, w, mask, zroute, reduce, tile)
+            plain = lambda: sv.score_variants_reference(phit, w, mask, zroute, reduce)
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            err_k = (got.double() - exact).abs().max().item()
+            err_p = (ref.double() - exact).abs().max().item()
+            check(torch.isfinite(got).all() and err_k <= max(SCORE_SLACK * err_p, SCORE_ATOL),
+                  f"pallas_variants {key}: max error {err_k:.3e} against float64, "
+                  f"plain {err_p:.3e}")
+            ms = _events_ms(kern, 20)
+            plain_ms = _events_ms(plain, 3)
+            bms, by = bound(nbytes, **_variant_ops(b * p * w.shape[1], 15, zroute, reduce))
+            r = res[key]
+            finding = ""
+            if not torch.allclose(r["cost"], base["cost"], rtol=FROZEN_COST_RTOL,
+                                  atol=FROZEN_COST_ATOL):
+                finding += " FINDING: costs outside the frozen-solve tolerance of the baseline"
+            if r["med_xy"] >= GATE_MEDIAN_XY_M or r["med_th"] >= GATE_MEDIAN_TH_RAD:
+                finding += " FINDING: misses bench.py's accuracy gate"
+            variants[key] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, err_vs_f64=err_k,
+                                 plain_err_vs_f64=err_p, bound_ms=bms, bound_by=by,
+                                 ms_per_batch=r["ms"], solves_s=r["solves_s"],
+                                 cost_maxdiff_vs_baseline=r["maxdiff"], median_xy_m=r["med_xy"],
+                                 median_th_rad=r["med_th"])
+            print(f"[phase 6c] {key}: {r['ms']:.1f} ms/batch, {r['solves_s']:.1f} solves/s, cost "
+                  f"maxdiff vs baseline {r['maxdiff']:.3e}, median |xy| {r['med_xy']:.4f} m, "
+                  f"|th| {r['med_th']:.5f} rad{finding}; kernel (B={b} N={w.shape[1]} P={p}) "
+                  f"max |kernel - plain| {err:.3e}, vs float64 {err_k:.3e} (plain {err_p:.3e}); "
+                  f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}, "
+                  f"{100 * bms / ms:.1f}% of it)")
+    entry = _study_entry("pallas_variants", "score_variants.cu", "experiments/pallas_variants.py:37",
+                         launches, variants, "dot_dot_t256")
+    entry["baseline"] = {k: base[k] for k in ("ms", "solves_s", "med_xy", "med_th")}
+    return entry
+
+
+def phase_scatter(dev):
+    """6d: experiments/scatter_unique_ab.py at W=2 and W=128."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.experiments import scatter_unique_ab as su
+    from ndtpso_slam_tpu_torch.ops import row_scatter as rsc
+
+    per_width = (1 + su.REPS) + 2 * su.SCAN_T + 2  # timed calls, the scan chain, two checks
+    res, launches = _drive("scatter_unique_ab", lambda: su.run(dev), "row_scatter",
+                           2 * per_width + (1 + su.REPS))  # and three fields at W=2
+    for tag in ("", "_w128"):
+        check(res["correct" + tag] and res["duplicate_rule" + tag],
+              f"scatter_unique_ab{tag}: unique ids equal index_copy_ {res['correct' + tag]}, "
+              f"duplicate rule {res['duplicate_rule' + tag]}")
+
+    ids, rs = su.fleet_ids()
+    fid = torch.from_numpy(ids).to(dev)
+    vals = torch.from_numpy(rs.randn(su.M, su.W).astype(np.float32)).to(dev)
+    vals128 = torch.from_numpy(rs.randn(su.M, su.W_TPU).astype(np.float32)).to(dev)
+    variants = {}
+    for key, n_rows, idx, v, n_fields in (("w2", su.R, fid, vals, 1), ("w2_3fields", su.R, fid, vals, 3),
+                                          ("w128", su.C, fid % su.C, vals128, 1)):
+        base = torch.randn((n_rows + 1, v.shape[1]), device=dev)
+        vs = [v + k for k in range(n_fields)]
+        got = rsc.row_scatter([base.clone() for _ in vs], idx, vs)
+        want = rsc.row_scatter_reference([base.clone() for _ in vs], idx, vs)
+        check(all(torch.equal(g, r) for g, r in zip(got, want)),
+              f"scatter_unique_ab {key}: kernel differs from its plain version")
+        del got, want
+        ops = [base.clone() for _ in vs]
+        plain_ms = _events_ms(lambda: rsc.row_scatter_reference(ops, idx, vs), 3)
+        tag = "_w128" if key == "w128" else ""
+        ms = res[("row_scatter_3" if n_fields == 3 else "row_scatter") + tag]
+        lib_ms = res["index_copy" + tag] if n_fields == 1 else None
+        unique = int(torch.unique(idx).numel())
+        width = v.shape[1]
+        # The M ids, then each target's winning row read once and written
+        # once per field: a scatter-set moves no other row.
+        bms, by = bound(8.0 * su.M + 2 * n_fields * 4.0 * width * unique)
+        variants[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=0.0,
+                             bound_ms=bms, bound_by=by, rows=n_rows + 1, width=width,
+                             fields=n_fields, unique_rows=unique)
+        print(f"[phase 6d] row_scatter {key} ({n_rows + 1} rows x {width}, M={su.M}, {unique} "
+              f"distinct targets): kernel = plain bit for bit; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, index_copy_ {lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms, "
+              f"bound {bms:.5f} ms ({by}, {100 * bms / ms:.2f}% of it)")
+        del base, ops
+    print("[phase 6d] library calls (ms): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in res.items() if isinstance(v, float)))
+    entry = _study_entry("scatter_unique_ab", "row_scatter.cu",
+                         "experiments/scatter_unique_ab.py:63", launches, variants, "w2",
+                         library_ms=variants["w2"]["library_ms"])
+    entry["library_calls_ms"] = {k: v for k, v in res.items() if isinstance(v, float)}
+    return entry
+
+
+def phase_studies():
+    """6: the four ported TPU studies.  Returns their kernels-line entries."""
+    import torch
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    entries = [phase_kernel_variants(dev), phase_rollout_score_variants(dev),
+               phase_pallas_variants(dev), phase_scatter(dev)]
+    print(f"[phase 6] wall {time.perf_counter() - t0:.1f} s")
+    return entries
 
 
 def main() -> int:
@@ -686,23 +1119,14 @@ def main() -> int:
     worst = phase_kernel()
     phase_paths()
     node, lg, launches = phase_main()
-    worst_main, ms, plain_ms = phase_main_kernel(node, lg)
+    worst_main, ms, plain_ms, bnd = phase_main_kernel(node, lg)
     world = batch_world(BATCH, torch.device("cuda"))
     worst_small = phase_batch_kernels(world)
     timed = phase_batch(world)
     timed.update(phase_batch_small(world))
-    src = "ndtpso_slam_tpu_torch/csrc/"
     tpu = "ndtpso_slam_tpu/ops/"
-    kernels = [{
-        "name": "rollout_local",
-        "route": "cuda",
-        "source": src + "rollout_local.cu",
-        "replaces": tpu + "pallas_rollout.py:551",
-        "launches": launches,
-        "max_abs_err": max(worst, worst_main),
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]
+    kernels = [_entry("rollout_local", SRC + "rollout_local.cu", tpu + "pallas_rollout.py:551",
+                      launches, max(worst, worst_main), ms, plain_ms, bnd)]
     for name, source, replaces in (
         ("rollout_local_turbo", "rollout_local.cu", "pallas_rollout.py:618"),
         ("rollout", "rollout.cu", "pallas_rollout.py:111"),
@@ -710,12 +1134,10 @@ def main() -> int:
         ("rollout_turbo", "rollout.cu", "pallas_rollout.py:148"),
         ("score", "score.cu", "pallas_score.py:41"),
     ):
-        n_launch, k_ms, p_ms, wide_err = timed[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src + source, "replaces": tpu + replaces,
-            "launches": n_launch, "max_abs_err": max(worst_small[name], wide_err),
-            "ms": k_ms, "plain_ms": p_ms,
-        })
+        n_launch, k_ms, p_ms, wide_err, k_bnd = timed[name]
+        kernels.append(_entry(name, SRC + source, tpu + replaces, n_launch,
+                              max(worst_small[name], wide_err), k_ms, p_ms, k_bnd))
+    kernels.extend(phase_studies())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
