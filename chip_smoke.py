@@ -5,7 +5,7 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. Device and build: requires a CUDA device, prints the card's name and power
-   limit (nvidia-smi), builds the five kernel libraries from csrc/ (one nvcc
+   limit (nvidia-smi), builds the seven kernel libraries from csrc/ (one nvcc
    each, all at once) and prints what ptxas reports of each kernel.
 2. Kernel against its plain PyTorch version: B=3 solves, N=384 points,
    P in {50, 200}, 10 iterations, on a small synthetic map.
@@ -51,7 +51,22 @@ Phases (any failure exits non-zero and prints no result line):
       call's own inputs against its plain version and float64;
    d. scatter_unique_ab: the row scatter at W=2 over 2.88 M rows and at
       W=128 over 360,001 rows, bit-equal to index_copy_ on unique ids and
-      to its plain version on duplicate ids, beside the library calls.
+      to its plain version on duplicate ids, beside the library calls;
+   e. io_probe: the four input-layout probes at the script's shape (B=2,
+      N=256) and at C1's batch shape (B=256, N=384: a 78.6 MB stencil
+      table), beside torch.sum over the same tensor;
+   f. mosaic_probe: the seven single-op probes on the script's [8, 512]
+      tile of ones and on a seeded random tile, Threefry bit-equal, beside
+      the one PyTorch call that computes col3, dotgen and bcast_out;
+   g. rollout_bisect: every stage of the staged rollout kernel at the
+      script's shape, on its inputs and on inputs whose points bind, then
+      stages 1, 2 and 3 at K2's batch shape (B=256, P=4096, N=384, I=50):
+      the draws and the update, the bind and the score as differences of
+      their times, beside K2's time from phase 5b; at that shape, stage 3
+      with no PSO step held to one evaluation's sum order on the binding
+      inputs and on a flat landscape, and a witness printed: after 0-50
+      steps, kernel against plain version and plain float32 against
+      float64.
 
 Each kernel's entry in the kernels line carries its bound: the larger of
 the bytes its function must move over the HBM rate and its operations
@@ -97,13 +112,18 @@ def check(cond, msg):
 # exp/exp2, the special-function units: 16 lanes per SM (Hopper white paper)
 # x 132 SMs x the 1.98 GHz clock that the 67 TFLOP/s FP32 figure implies.
 HBM_BYTES_S = 3.35e12
-PEAK = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12, "sfu": 132 * 16 * 1.98e9}
+# int32: the 64 INT32 lanes of each SM (Hopper white paper) at the same clock.
+PEAK = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12, "sfu": 132 * 16 * 1.98e9,
+        "int32": 132 * 64 * 1.98e9}
+# One Threefry-2x32 block: 20 rounds of an add, a rotate (one funnel shift)
+# and a xor, five key injections of two adds, the two counter adds.
+THREEFRY_INT_OPS = 20 * 3 + 5 * 2 + 2
 
 
 def bound(nbytes, **ops):
     """The least time the card could take for the work: (ms, "bytes" or
     "operations"), the larger of nbytes over the HBM rate and, over the
-    pipes named in ops (fp32, tf32, bf16, sfu), the slowest pipe's
+    pipes named in ops (fp32, tf32, bf16, sfu, int32), the slowest pipe's
     operations over its peak."""
     t_ops = max((v / PEAK[k] for k, v in ops.items()), default=0.0)
     t_bytes = nbytes / HBM_BYTES_S
@@ -150,12 +170,12 @@ def phase_device():
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
-    from ndtpso_slam_tpu_torch.ops import (_build, rollout, rollout_local, row_scatter, score,
-                                           score_variants)
+    from ndtpso_slam_tpu_torch.ops import (_build, probes, rollout, rollout_bisect, rollout_local,
+                                           row_scatter, score, score_variants)
 
     t0 = time.perf_counter()
     paths = _build.build(rollout_local.LIB, rollout.LIB, score.LIB, score_variants.LIB,
-                         row_scatter.LIB)
+                         row_scatter.LIB, probes.LIB, rollout_bisect.LIB)
     print(f"[phase 1] built {', '.join(p.name for p in paths)} in "
           f"{time.perf_counter() - t0:.2f} s")
     for path in paths:
@@ -616,7 +636,9 @@ def _packed(world, local=False):
 
 
 def _launch_counts():
+    from ndtpso_slam_tpu_torch.ops import probes
     from ndtpso_slam_tpu_torch.ops import rollout as ro
+    from ndtpso_slam_tpu_torch.ops import rollout_bisect as rb
     from ndtpso_slam_tpu_torch.ops import rollout_local as rl
     from ndtpso_slam_tpu_torch.ops import row_scatter as rsc
     from ndtpso_slam_tpu_torch.ops import score as sc
@@ -624,7 +646,9 @@ def _launch_counts():
 
     return dict(rollout=ro.pso_rollout, rollout_local=rl.pso_rollout_local,
                 score=sc.fused_bound_scores, score_variants=sv.score_variants,
-                score_block=sv.score_block, row_scatter=rsc.row_scatter)
+                score_block=sv.score_block, row_scatter=rsc.row_scatter,
+                io_probe=probes.io_probe, mosaic_probe=probes.mosaic_probe,
+                rollout_bisect=rb.rollout_bisect)
 
 
 def _reset_counts():
@@ -1094,15 +1118,393 @@ def phase_scatter(dev):
     return entry
 
 
-def phase_studies():
-    """6: the four ported TPU studies.  Returns their kernels-line entries."""
+# Phases 6e-6g, the bring-up probes.  A probe's sums run in another order
+# than its plain version's: rtol 1e-5 and atol 1e-5 times the sum of the
+# terms' magnitudes (ops/probes.py:io_magnitudes, mosaic_magnitudes).
+SUM_RTOL = 1e-5
+SUM_ATOL = 1e-5
+IO_WIDE = (256, 384)  # C1's batch: B solves of N points
+MOSAIC_EXACT = ("col3", "bool11", "threefry")
+# slice11's cos: the kernel's cosf and PyTorch's CUDA cos gave the same bits
+# on both tiles (PERF.md); two float32 ulps.
+COS_RTOL, COS_ATOL = 2.0**-22, 0.0
+# A probe's device time: torch.profiler's device busy time over PROFILE_CALLS
+# calls, beside the CUDA-event time per call (which, for a launch-bound probe,
+# is the wrapper's host time).
+PROFILE_CALLS = 10
+# The stencil table at C1's batch is 1.6x the 50 MB L2, and calls back to
+# back find part of it there: at that shape a probe (and torch.sum) is timed
+# one call at a time, each after a read of FLUSH_BYTES that evicts the L2 (a
+# read, so the call has no dirty lines of the flush to write back).
+FLUSH_BYTES = 400 * 2**20
+MOSAIC_SEEDS = (None, 5)  # the script's ones, and seeded random tiles
+# E7: the staged rollout kernel at K2's batch shape, on inputs whose points
+# bind (experiments/rollout_bisect.py:binding_inputs).
+E7_WIDE = dict(b=256, p=4096, n=384, iters=50)
+E7_SPLIT = (1, 2, 3)
+E7_REPS = 3
+# Whole solves at that width, kernel against plain version: the scores'
+# sum order can flip a decision between two nearly equal particles.  On an
+# H100 the stage-3 solves differed by at most 1.317e-04 in pose and
+# 1.831e-04 in cost (PERF.md); the limits allow ~7x that.
+E7_WIDE_TOL = (1e-5, 1e-3, 1e-3)
+# A check that no decision can move: stage 3 with no PSO step, at that
+# width.  Its gcost is the least of the first 1 + P evaluations, so it
+# differs from the plain version's by no more than one evaluation's sum
+# order moves it, on any landscape (the scores lie in [0, 1], so the sum of
+# their magnitudes is |cost|).
+# The witness: stage 3 after each of these PSO steps, kernel against the
+# plain version in float32 and in float64, on binding_inputs and on a flat
+# landscape (_flat_inputs).
+E7_TRACE_ITERS = (0, 1, 2, 5, 10, 20, 50)
+# Solves whose pose moved more than this count as diverged in the witness.
+E7_MOVED = 1e-6
+# Per particle evaluation of the staged kernel outside the score: the PSO
+# update (10 FP32 operations on each of 3 dims) and -|pos|^2 (6).
+E7_UPDATE_FLOPS = 36
+
+
+def _cold_ms(fn, reps):
+    """ms per call of fn with a cold L2: CUDA events around each call, each
+    after a FLUSH_BYTES read (which also hides the host's enqueue time)."""
+    import torch
+
+    flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    fn()
+    pairs = []
+    for _ in range(reps):
+        flush.sum()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def _device_ms(fn):
+    return _profile(lambda: [fn() for _ in range(PROFILE_CALLS)])[1] / PROFILE_CALLS
+
+
+def _sum_ok(got, want, magnitudes):
+    return bool(((got - want).abs() <= SUM_RTOL * want.abs() + SUM_ATOL * magnitudes).all())
+
+
+def phase_io_probe(dev):
+    """6e: experiments/io_probe.py's four probes at the script's shape and at
+    C1's batch shape, where the stencil probes stream the [B, 25, 8, N]
+    table that K1 and K2 read."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.experiments import io_probe as iop
+    from ndtpso_slam_tpu_torch.ops import probes
+
+    b_w, n_w = IO_WIDE
+    shapes = ((iop.B, iop.N, iop.REPS), (b_w, n_w, 2 * iop.REPS))
+    res, launches = _drive("io_probe", lambda: [iop.run(dev, b=b, n=n, reps=r) for b, n, r in shapes],
+                           "io_probe", sum(len(iop.PROBES) * (2 + r) for *_, r in shapes))
+    sites = {"min": 32, "smem": 96, "sten3": 74, "sten4": 53}
+    variants = {}
+    for (b, n, reps), by_probe in zip(shapes, res):
+        inp = iop.inputs(dev, b, n)
+        for name, (got, ms) in by_probe.items():
+            args = iop.probe_args(name, inp)
+            src = args[0]
+            want = probes.io_probe_reference(name, *args)
+            err = (got - want).abs().max().item()
+            check(torch.isfinite(got).all() and _sum_ok(got, want, probes.io_magnitudes(name, src)),
+                  f"io_probe {name} B={b} N={n}: max |kernel - plain| {err:.3e}")
+            plain_ms = _events_ms(lambda: probes.io_probe_reference(name, *args), 3)
+            dev_ms = _device_ms(lambda: probes.io_probe(name, *args))
+            table = src.view(b, -1, 8, n)  # the points as one stencil offset
+            library = lambda: torch.sum(table, dim=(1, 3))
+            lib_ms = _events_ms(library, reps)
+            if (b, n) == IO_WIDE:  # ms and the library's: one cold call at a time
+                events_ms = ms
+                ms = _cold_ms(lambda: probes.io_probe(name, *args), reps)
+                lib_ms = _cold_ms(library, reps)
+            nbytes = _nbytes(*args, got)
+            bms, by = bound(nbytes, fp32=float(src.numel()))
+            key = f"{name}_b{b}_n{n}"
+            variants[key] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                 max_abs_err=err, bound_ms=bms, bound_by=by, bytes=nbytes,
+                                 replaces=f"experiments/io_probe.py:{sites[name]}")
+            how = "back to back"
+            if (b, n) == IO_WIDE:
+                variants[key]["back_to_back_ms"] = events_ms
+                how = f"cold L2, one call at a time; back to back {events_ms:.4f} ms"
+            print(f"[phase 6e] {name} (B={b} N={n}, {nbytes / 1e6:.3f} MB): max |kernel - plain| "
+                  f"{err:.3e}; kernel {ms:.4f} ms ({how}; {nbytes / ms / 1e6:.1f} GB/s; device "
+                  f"busy {dev_ms:.4f} ms per call back to back), plain {plain_ms:.4f} ms, "
+                  f"torch.sum {lib_ms:.4f} ms, bound {bms:.5f} ms ({by}, {100 * bms / ms:.1f}% of it)")
+    ref = f"sten4_b{b_w}_n{n_w}"
+    return _study_entry("io_probe", "probes.cu", "experiments/io_probe.py:53", launches, variants,
+                        ref, library_ms=variants[ref]["library_ms"])
+
+
+def _mosaic_ops(name, numel, n_dot):
+    if name == "threefry":
+        return dict(int32=float(THREEFRY_INT_OPS * numel))
+    if name == "dotgen":  # z over 8 rows for n_dot x P pairs, then the sum over n
+        return dict(fp32=float(2 * numel * n_dot + n_dot * (numel // 8)))
+    return dict(fp32=float(numel))
+
+
+def _mosaic_library(name, x, n_dot):
+    """The one PyTorch call that computes a mosaic probe, as a function of no
+    arguments, or None where no single call does (the row constant of col3
+    is built once, outside the call)."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.ops import probes
+
+    if name == "col3":
+        c = torch.tensor([1.0, 2.0] + [3.0] * (probes.ROWS - 2), device=x.device)[:, None]
+        return lambda: x + c
+    if name == "dotgen":
+        head = x[:, :n_dot]
+        return lambda: torch.einsum("rn,rq->q", head, x).expand_as(x)
+    if name == "bcast_out":
+        return lambda: torch.sum(x, dim=1, keepdim=True).expand_as(x)
+    return None
+
+
+def phase_mosaic_probe(dev):
+    """6f: experiments/mosaic_probe.py's seven single-op probes on the
+    script's [8, 512] tile of ones and on a seeded random tile."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.experiments import mosaic_probe as mp
+    from ndtpso_slam_tpu_torch.ops import probes
+
+    res, launches = _drive("mosaic_probe", lambda: [mp.run(dev, seed=s) for s in MOSAIC_SEEDS],
+                           "mosaic_probe", len(MOSAIC_SEEDS) * len(mp.PROBES) * (2 + mp.REPS))
+    variants = {}
+    for seed, by_probe in zip(MOSAIC_SEEDS, res):
+        x, xi = mp.inputs(dev, seed=seed)
+        for name, (got, ms) in by_probe.items():
+            arg = xi if name == "threefry" else x
+            want = probes.mosaic_probe_reference(name, arg, mp.N)
+            err = (got - want).abs().max().item()
+            if name in MOSAIC_EXACT:
+                ok = torch.equal(got, want)
+            elif name == "slice11":
+                ok = torch.allclose(got, want, rtol=COS_RTOL, atol=COS_ATOL)
+            else:
+                ok = _sum_ok(got, want, probes.mosaic_magnitudes(name, x, mp.N))
+            check(ok, f"mosaic_probe {name} (seed {seed}): max |kernel - plain| {err:.3e}")
+            plain_ms = _events_ms(lambda: probes.mosaic_probe_reference(name, arg, mp.N), 3)
+            dev_ms = _device_ms(lambda: probes.mosaic_probe(name, arg, mp.N))
+            library = _mosaic_library(name, x, mp.N)
+            lib_ms = lib_dev_ms = None
+            if library is not None:  # timed as the kernel: back to back, and device busy
+                check(_sum_ok(library(), want, probes.mosaic_magnitudes(name, x, mp.N)),
+                      f"mosaic_probe {name}: the library call computes another function")
+                lib_ms = _events_ms(library, mp.REPS)
+                lib_dev_ms = _device_ms(library)
+            nbytes = 2.0 * 4 * x.numel()  # the u32 or f32 tile read, the f32 tile written
+            bms, by = bound(nbytes, **_mosaic_ops(name, x.numel(), mp.N))
+            key = f"{name}_{'ones' if seed is None else f'seed{seed}'}"
+            variants[key] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                 library_device_ms=lib_dev_ms, max_abs_err=err, bound_ms=bms,
+                                 bound_by=by)
+            lib = ("" if library is None else f", library {lib_ms:.4f} ms (device busy "
+                   f"{lib_dev_ms:.4f} ms per call)")
+            print(f"[phase 6f] {key} ([8, {x.shape[1]}]): max |kernel - plain| {err:.3e}"
+                  f"{' (bit-equal)' if name in MOSAIC_EXACT else ''}; kernel {ms:.4f} ms (device "
+                  f"busy {dev_ms:.4f} ms per call), plain {plain_ms:.4f} ms{lib}, bound "
+                  f"{bms:.6f} ms ({by}, {100 * bms / ms:.2f}% of it)")
+    return _study_entry("mosaic_probe", "probes.cu", "experiments/mosaic_probe.py:17", launches,
+                        variants, "threefry_seed5")
+
+
+def _bisect_bound(stage, args, p, iters):
+    """E7's bound: its inputs read and its output written once; the Threefry
+    blocks (the seed's 8 rows, 3 per particle for the population and each
+    iteration) on the INT32 lanes, the update and the trivial cost on the
+    FP32 pipes, and from stage 3 on the score of every evaluation counted as
+    _rollout_bound counts K2's."""
+    from ndtpso_slam_tpu_torch.ops import rollout_bisect as rb
+
+    pts, sten = args[3], args[4]
+    b, n = pts.shape[0], pts.shape[-1]
+    ops = {"int32": float(THREEFRY_INT_OPS * b * (8 + 3 * p * (1 + iters))),
+           "fp32": float(E7_UPDATE_FLOPS * b * p * (1 + iters))}
+    if rb.cost_kind(stage) == "quad":
+        for k, v in score_ops(_evaluations(p, [iters] * b) * n, 15, masked=False).items():
+            ops[k] = ops.get(k, 0.0) + v
+    return bound(_nbytes(*args) + 4.0 * b * 8 * rb.LANES, **ops)
+
+
+def _bisect_check(tag, stage, got, want, tol=(COST_RTOL, COST_ATOL, POSE_ATOL)):
+    """Kernel against plain version: bit for bit where the stage's cost is
+    trivial (the draws, the update, -|pos|^2 round alike), the seed's row
+    sums (stage 20) in another order, and stages 2-9 within tol = (cost
+    rtol, cost atol, pose atol): by default phase 2's, the scores summed in
+    another order.  Returns (dpose, dcost)."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.ops import rollout_bisect as rb
+
+    check(torch.isfinite(got).all(), f"rollout_bisect {tag} stage {stage}: not finite")
+    dpose = (got[:, :3] - want[:, :3]).abs().max().item()
+    dcost = (got[:, 3:] - want[:, 3:]).abs().max().item()
+    if stage == 20:
+        ok = torch.allclose(got, want, rtol=SUM_RTOL, atol=0.0)
+    elif rb.cost_kind(stage) == "trivial":
+        ok = torch.equal(got, want)
+    else:
+        ok = torch.allclose(got[:, 3:], want[:, 3:], rtol=tol[0], atol=tol[1]) and dpose <= tol[2]
+    check(ok, f"rollout_bisect {tag} stage {stage}: max |dpose| {dpose:.3e}, |dcost| {dcost:.3e}")
+    return dpose, dcost
+
+
+def _flat_inputs(args, seed=1):
+    """binding_inputs with a flat landscape: every stencil cell's mean within
+    0.25 m of its centre and (la, lb, lc) those of a 1 m cell (la, lc in
+    [0.5, 1.5], |lb| < 0.3), so many particles score nearly alike."""
+    import numpy as np
+    import torch
+
+    from ndtpso_slam_tpu_torch.ops import rollout_bisect as rb
+
+    keys, guesses, devs, pts, sten = args
+    b, n = pts.shape[0], pts.shape[-1]
+    rs = np.random.RandomState(seed)
+    side = 2 * rb.R + 1
+
+    def u(lo, hi, *shape):
+        return torch.from_numpy(rs.uniform(lo, hi, (b, *shape, n)).astype(np.float32)).to(sten.device)
+
+    sten = sten.clone()
+    for k in range(rb.K2):
+        off = torch.tensor([k % side - rb.R, k // side - rb.R], dtype=torch.float32,
+                           device=sten.device)[None, :, None]
+        sten[:, k, 0:2] = pts[:, 2:4] + off - rb.MAP.half_size_m + 0.5 + u(-0.25, 0.25, 2)
+        sten[:, k, 2], sten[:, k, 3], sten[:, k, 4] = u(0.5, 1.5), u(-0.3, 0.3), u(0.5, 1.5)
+    return keys, guesses, devs, pts, sten
+
+
+def _bisect_first_evaluations(tag, args, p):
+    """Stage 3 with no PSO step, kernel against plain version: the gcosts,
+    and the plain cost at the kernel's pose against the kernel's gcost, each
+    within one evaluation's sum order (E7_TRACE_ITERS' note).  Returns the
+    largest |dcost|."""
+    from ndtpso_slam_tpu_torch.ops import rollout as ro
+    from ndtpso_slam_tpu_torch.ops import rollout_bisect as rb
+
+    keys, guesses, devs, pts, sten = args
+    got = rb.rollout_bisect(3, *args, population=p, iterations=0)[:, :4, 0]
+    want = rb.rollout_bisect_reference(3, *args, population=p, iterations=0)[:, :4, 0]
+    at_pose = ro.packed_frozen_cost(got[:, None, :3], guesses, sten, pts, rb.MAP, rb.R)[:, 0]
+    limit = (SUM_RTOL + SUM_ATOL) * want[:, 3].abs()
+    dcost = (got[:, 3] - want[:, 3]).abs()
+    dpose_cost = (at_pose - got[:, 3]).abs()
+    check(bool((dcost <= limit).all() and (dpose_cost <= limit).all()),
+          f"rollout_bisect {tag} stage 3, no PSO step: |dcost| {dcost.max().item():.3e}, plain "
+          f"cost at the kernel's pose off by {dpose_cost.max().item():.3e} (limit "
+          f"{limit.min().item():.3e})")
+    dpose = (got[:, :3] - want[:, :3]).abs().max().item()
+    print(f"[phase 6g] {tag} inputs, stage 3 with no PSO step (B={pts.shape[0]} P={p} "
+          f"N={pts.shape[-1]}): |dcost| {dcost.max().item():.3e}, plain cost at the kernel's pose "
+          f"{dpose_cost.max().item():.3e} from its gcost (limit >= {limit.min().item():.3e}); "
+          f"|dpose| {dpose:.3e}")
+    return dcost.max().item()
+
+
+def _bisect_witness(tag, args, p):
+    """Stage 3 after E7_TRACE_ITERS PSO steps: how far the kernel is from
+    the plain version, and the plain float32 version from float64 (the same
+    draws), per solve.  Printed, not checked."""
+    from ndtpso_slam_tpu_torch.ops import rollout_bisect as rb
+
+    a64 = tuple(a.double() if a.is_floating_point() else a for a in args)
+    for iters in E7_TRACE_ITERS:
+        outs = [f(3, *a, population=p, iterations=iters)[:, :4, 0].double() for f, a in (
+            (rb.rollout_bisect, args), (rb.rollout_bisect_reference, args),
+            (rb.rollout_bisect_reference, a64))]
+        parts = []
+        for name, x, y in (("kernel - plain", outs[0], outs[1]),
+                           ("plain - float64", outs[1], outs[2])):
+            dpose = (x[:, :3] - y[:, :3]).abs().amax(dim=1)
+            moved = int((dpose > E7_MOVED).sum())
+            dcost = (x[:, 3] - y[:, 3]).abs().max().item()
+            parts.append(f"{name}: max |dpose| {dpose.max().item():.3e} ({moved} solves > "
+                         f"{E7_MOVED:g}), |dcost| {dcost:.3e}")
+        print(f"[phase 6g] witness, {tag} inputs, {iters} PSO steps: " + "; ".join(parts))
+
+
+def phase_rollout_bisect(dev, k2_ms):
+    """6g: experiments/rollout_bisect.py, every stage at the script's shape
+    on its inputs and on inputs whose points bind, then stages 1, 2 and 3 at
+    K2's batch shape: the draws and the update, + the bind, + the score,
+    beside K2's time from phase 5b."""
+    from ndtpso_slam_tpu_torch.experiments import rollout_bisect as rbx
+    from ndtpso_slam_tpu_torch.ops import rollout_bisect as rb
+
+    wide = dict(E7_WIDE)
+    b_w, p_w, n_w, i_w = wide.pop("b"), wide["p"], wide["n"], wide["iters"]
+
+    def drive():
+        return (rbx.run(dev), rbx.run(dev, binding=True),
+                rbx.run(dev, E7_SPLIT, b=b_w, binding=True, reps=E7_REPS, **wide))
+
+    res, launches = _drive("rollout_bisect", drive, "rollout_bisect",
+                           2 * len(rb.STAGES) + len(E7_SPLIT) * (2 + E7_REPS))
+    variants = {}
+    for tag, make, outs in (("script", rbx.inputs, res[0]), ("binding", rbx.binding_inputs, res[1])):
+        args = make(dev)
+        errs = {s: _bisect_check(tag, s, got, rb.rollout_bisect_reference(s, *args))
+                for s, (got, _) in outs.items()}
+        for s, (dpose, dcost) in errs.items():
+            variants[f"stage{s}_{tag}"] = dict(max_abs_err=max(dpose, dcost))
+        gcost3 = outs[3][0][:, 3, 0].tolist()
+        print(f"[phase 6g] {tag} inputs (B={rbx.B} P={rbx.P} N={rbx.N} I={rbx.ITERS}): all "
+              f"{len(errs)} stages = plain; max |dpose| {max(e[0] for e in errs.values()):.3e}, "
+              f"|dcost| {max(e[1] for e in errs.values()):.3e}; stage 3 gcost {gcost3}")
+
+    args = rbx.binding_inputs(dev, b=b_w, n=n_w)
+    ms = {}
+    for s in E7_SPLIT:
+        got, ms[s] = res[2][s]
+        plain = lambda: rb.rollout_bisect_reference(s, *args, population=p_w, iterations=i_w)
+        dpose, dcost = _bisect_check("wide", s, got, plain(), E7_WIDE_TOL)
+        plain_ms = _events_ms(plain, 1)
+        bms, by = _bisect_bound(s, args, p_w, i_w)
+        variants[f"stage{s}_wide"] = dict(ms=ms[s], plain_ms=plain_ms, max_abs_err=max(dpose, dcost),
+                                         bound_ms=bms, bound_by=by, library_ms=None)
+        print(f"[phase 6g] stage {s} ({rb.cost_kind(s)}; B={b_w} P={p_w} N={n_w} I={i_w}, binding "
+              f"inputs): max |dpose| {dpose:.3e}, |dcost| {dcost:.3e}; kernel {ms[s]:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}, {100 * bms / ms[s]:.1f}% of it)")
+    for tag, inputs in (("binding", args), ("flat", _flat_inputs(args))):
+        first = _bisect_first_evaluations(tag, inputs, p_w)
+        variants[f"stage3_no_step_{tag}"] = dict(max_abs_err=first)
+        _bisect_witness(tag, inputs, p_w)
+    split = (ms[1], ms[2] - ms[1], ms[3] - ms[2])
+    print(f"[phase 6g] K2's time split (B={b_w} P={p_w} N={n_w} I={i_w}): draws+update / bind / "
+          f"score = {split[0]:.4f} / {split[1]:.4f} / {split[2]:.4f} ms; stage 3 {ms[3]:.4f} ms "
+          f"beside K2 (phase 5b) {k2_ms:.4f} ms")
+    entry = _study_entry("rollout_bisect", "rollout_bisect.cu", "experiments/rollout_bisect.py:219",
+                         launches, variants, "stage3_wide")
+    entry["split_ms"] = dict(zip(("draws_update", "bind", "score"), split))
+    entry["k2_ms"] = k2_ms
+    return entry
+
+
+def phase_studies(k2_ms):
+    """6: the ported TPU studies and probes, given K2's time from phase 5b.
+    Returns their kernels-line entries."""
     import torch
 
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    entries = [phase_kernel_variants(dev), phase_rollout_score_variants(dev),
-               phase_pallas_variants(dev), phase_scatter(dev)]
-    print(f"[phase 6] wall {time.perf_counter() - t0:.1f} s")
+    entries = []
+    for phase in (phase_kernel_variants, phase_rollout_score_variants, phase_pallas_variants,
+                  phase_scatter, phase_io_probe, phase_mosaic_probe,
+                  lambda d: phase_rollout_bisect(d, k2_ms)):
+        t0 = time.perf_counter()
+        entries.append(phase(dev))
+        print(f"[phase 6] {entries[-1]['name']}: wall {time.perf_counter() - t0:.1f} s")
     return entries
 
 
@@ -1137,7 +1539,7 @@ def main() -> int:
         n_launch, k_ms, p_ms, wide_err, k_bnd = timed[name]
         kernels.append(_entry(name, SRC + source, tpu + replaces, n_launch,
                               max(worst_small[name], wide_err), k_ms, p_ms, k_bnd))
-    kernels.extend(phase_studies())
+    kernels.extend(phase_studies(timed["rollout"][1]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,5 +1,6 @@
 // Device code shared by the port's whole-solve PSO kernels (rollout.cu,
-// rollout_local.cu) and the C entry every kernel library exports.
+// rollout_local.cu, rollout_bisect.cu) and the C entry every kernel library
+// exports.
 //
 // * threefry2x32: the frozen parity stream (ops/rng.py:threefry2x32).
 // * philox4x32: the turbo stream (ops/rng.py:philox4x32, counter layout in
@@ -9,6 +10,10 @@
 // * dot16: the fused-multiply-add chain z = w . phi of rollout.cu and score.cu.
 // * block_argmin: the first-argmin merge of models/pso.py:_select_min, with
 //   its NaN rule.
+// * The frozen-correspondence score of rollout.cu (K2) and its staged twin
+//   rollout_bisect.cu: bind_point / quad_row (one point's stencil cell and
+//   w row at the binding pose), features, score_rows, score_particles and
+//   select_particle (one block's particles, ceil(P / kThreads) per thread).
 
 #pragma once
 
@@ -260,6 +265,205 @@ __device__ float block_sum(float x, float* scratch) {
   const float t = scratch[0];
   __syncthreads();
   return t;
+}
+
+// ---- The frozen-correspondence score (rollout.cu, rollout_bisect.cu).
+
+constexpr int kWRow = 16;  // floats per w row in shared memory (15 + 1 pad)
+constexpr float kMaskBig = 1e9f;
+
+enum ExpMode { kExp = 0, kExp2 = 1, kApprox = 2 };
+
+// float32 -> bfloat16 -> float32, round to nearest even (PyTorch's rule).
+__device__ __forceinline__ float round_bf16(float x) {
+  if (isnan(x)) return x;
+  uint32_t u = __float_as_uint(x);
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+// exp(-max(z, 0) / 2) in the chosen form.  The clamp keeps a NaN, as
+// jnp.maximum does.
+__device__ __forceinline__ float score_of(float z, int mode) {
+  const float zc = z < 0.0f ? 0.0f : z;
+  if (mode == kExp2) return exp2f(zc * kExp2Scale);
+  if (mode == kApprox) {
+    // Schraudolph's 2^x: x written into the exponent field by integer
+    // arithmetic (pallas_rollout.py, exp_mode="approx").
+    float x = zc * kExp2Scale;
+    x = x < -126.0f ? -126.0f : x;
+    const int i = (int)(x * 8388608.0f) + (127 * (1 << 23) - 366393);
+    return __int_as_float(i);
+  }
+  return expf(-0.5f * zc);
+}
+
+// One point of a solve bound at the binding pose: its rotated offset, the
+// validity mask (built, inside the frame, valid; 0 outside the stencil) and
+// its cell's lane of the stencil table (nullptr outside the stencil).
+struct BoundPoint {
+  float rx, ry, mask;
+  const float* lane;
+};
+
+// Point i of pts [8, N] (px, py, anchor ix, anchor iy, valid) bound at
+// `bind` (c0, s0 its cos and sin) against the radius-r stencil sten
+// [(2r + 1)^2, 8, N] (mx, my, la, lb, lc, built) of a frame |q| < half of
+// cells `cell` wide.  The cell is a direct load: the TPU kernel's one-hot
+// select over the offsets only ever added zeros to it.
+__device__ __forceinline__ BoundPoint bind_point(const float* pts, const float* sten, int n,
+                                                 int i, const float* bind, float c0, float s0,
+                                                 float half, float cell, int r) {
+  const int side = 2 * r + 1;
+  const float px = pts[i];
+  const float py = pts[n + i];
+  const int ax = (int)pts[2 * n + i];
+  const int ay = (int)pts[3 * n + i];
+  const float valid = pts[4 * n + i];
+  BoundPoint bp;
+  bp.rx = px * c0 - py * s0;
+  bp.ry = px * s0 + py * c0;
+  const float qx = bp.rx + bind[0];
+  const float qy = bp.ry + bind[1];
+  const bool inb = (qx > -half) && (qx < half) && (qy > -half) && (qy < half);
+  const int di = floor_i32((qx + half) / cell) - ax;
+  const int dj = floor_i32((qy + half) / cell) - ay;
+  bp.lane = nullptr;
+  float built = 0.0f;
+  if (abs(di) <= r && abs(dj) <= r) {
+    bp.lane = sten + (size_t)((dj + r) * side + (di + r)) * 8 * n + i;
+    built = bp.lane[5 * n];
+  }
+  bp.mask = built * (inb ? 1.0f : 0.0f) * valid;
+  return bp;
+}
+
+// The 15 quadratic-form coefficients w of models/cost.py:_quadform_bound
+// for a bound point, with the mask folded in (w *= mask; w14 += (1 - mask) *
+// 1e9, so a masked point scores exp(-5e8) == 0 exactly), rounded to bfloat16
+// if bf16, into wrow[0..15] (slot 15: dot16's 0 pad).
+__device__ __forceinline__ void quad_row(const BoundPoint& bp, const float* bind, int n, int bf16,
+                                         float* wrow) {
+  float mx = 0.0f, my = 0.0f, la = 0.0f, lb = 0.0f, lc = 0.0f;
+  if (bp.lane != nullptr) {
+    mx = bp.lane[0];
+    my = bp.lane[n];
+    la = bp.lane[2 * n];
+    lb = bp.lane[3 * n];
+    lc = bp.lane[4 * n];
+  }
+  const float rx = bp.rx, ry = bp.ry, mask = bp.mask;
+  const float gx = rx + bind[0] - mx;
+  const float gy = ry + bind[1] - my;
+  const float brx[5] = {rx, -ry, 1.0f, 0.0f, gx};
+  const float bry[5] = {ry, rx, 0.0f, 1.0f, gy};
+  float lbx[5], lby[5];
+#pragma unroll
+  for (int a = 0; a < 5; ++a) {
+    lbx[a] = la * brx[a] + lb * bry[a];
+    lby[a] = lb * brx[a] + lc * bry[a];
+  }
+  int f = 0;
+#pragma unroll
+  for (int a = 0; a < 5; ++a) {
+#pragma unroll
+    for (int c = a; c < 5; ++c) {
+      float m = brx[a] * lbx[c] + bry[a] * lby[c];
+      if (a != c) m = 2.0f * m;
+      m = m * mask;
+      if (f == 14) m = m + (1.0f - mask) * kMaskBig;
+      wrow[f++] = bf16 ? round_bf16(m) : m;
+    }
+  }
+  wrow[15] = 0.0f;
+}
+
+// phi(u), u = [cos dth - 1, sin dth, x - bx, y - by, 1], pairs a <= b,
+// rounded to bfloat16 if bf16, and a 0 in slot 15 (dot16's pad).
+__device__ __forceinline__ void features(const float* pose, const float* bind, int bf16,
+                                         float phi[16]) {
+  const float dth = pose[2] - bind[2];
+  float sn, cs;
+  sincosf(dth, &sn, &cs);
+  const float u[5] = {cs - 1.0f, sn, pose[0] - bind[0], pose[1] - bind[1], 1.0f};
+  int f = 0;
+#pragma unroll
+  for (int a = 0; a < 5; ++a) {
+#pragma unroll
+    for (int b = a; b < 5; ++b) {
+      const float v = u[a] * u[b];
+      phi[f++] = bf16 ? round_bf16(v) : v;
+    }
+  }
+  phi[15] = 0.0f;
+}
+
+// Cost contribution of point rows [i0, i1) of s_w [N, kWRow] (step di) for
+// one phi.
+__device__ __forceinline__ float score_rows(const float* s_w, int i0, int i1, int di,
+                                            const float phi[16], int mode) {
+  float acc = 0.0f;
+  for (int i = i0; i < i1; i += di)
+    acc += score_of(dot16<15>(s_w + (size_t)i * kWRow, phi), mode);
+  return acc;
+}
+
+// Cost of each of this thread's particles j = q * kThreads + threadIdx.x
+// (j < p) at the binding pose whose w rows s_w holds: minus the score summed
+// over all N points.  0 for q past the population.
+template <int kThreads, int kPPT>
+__device__ __forceinline__ void score_particles(const float (*pos)[3], int p, const float* bind,
+                                                const float* s_w, int n, int bf16, int mode,
+                                                float cost[kPPT]) {
+#pragma unroll
+  for (int q = 0; q < kPPT; ++q) {
+    cost[q] = 0.0f;
+    if (q * kThreads + (int)threadIdx.x < p) {
+      float phi[16];
+      features(pos[q], bind, bf16, phi);
+      cost[q] = -score_rows(s_w, 0, n, 1, phi, mode);
+    }
+  }
+}
+
+// First-argmin of the block's particle values c (jnp.min's rule: NaN if any
+// is NaN); the winner's row of `rows` goes to cand[0..3), zeros when the
+// minimum is NaN (no particle equals it).  Returns the minimum.  All threads
+// must call it; ends synchronised.
+template <int kThreads, int kPPT>
+__device__ __forceinline__ float select_particle(const float c[kPPT], const float (*rows)[3],
+                                                 int p, ArgminScratch<kThreads>& red,
+                                                 float* cand) {
+  const int tid = threadIdx.x;
+  float bv = INFINITY;
+  int bi = 0x7fffffff;
+  int nan = 0;
+#pragma unroll
+  for (int q = 0; q < kPPT; ++q) {
+    const int j = q * kThreads + tid;
+    if (j < p) {
+      if (isnan(c[q])) {
+        nan = 1;
+      } else if (better(c[q], j, bv, bi)) {
+        bv = c[q];
+        bi = j;
+      }
+    }
+  }
+  float mv;
+  int mi;
+  block_argmin_merge<kThreads>(bv, bi, nan, &mv, &mi, red);
+  if (tid == 0 && isnan(mv)) cand[0] = cand[1] = cand[2] = 0.0f;
+#pragma unroll
+  for (int q = 0; q < kPPT; ++q) {
+    if (!isnan(mv) && q * kThreads + tid == mi) {
+      cand[0] = rows[q][0];
+      cand[1] = rows[q][1];
+      cand[2] = rows[q][2];
+    }
+  }
+  __syncthreads();
+  return mv;
 }
 
 }  // namespace ndt

@@ -47,10 +47,6 @@ namespace {
 using namespace ndt;
 
 constexpr int kThreads = 512;
-constexpr int kRow = 16;  // floats per w row in shared memory (15 + 1 pad)
-constexpr float kBig = 1e9f;
-
-enum ExpMode { kExp = 0, kExp2 = 1, kApprox = 2 };
 
 struct Params {
   int n_pts;
@@ -69,58 +65,6 @@ struct Params {
   float w_damping;
   float zdev0, zdev1, zdev2;
 };
-
-// float32 -> bfloat16 -> float32, round to nearest even (PyTorch's rule).
-__device__ __forceinline__ float round_bf16(float x) {
-  if (isnan(x)) return x;
-  uint32_t u = __float_as_uint(x);
-  u += 0x7fffu + ((u >> 16) & 1u);
-  return __uint_as_float(u & 0xffff0000u);
-}
-
-// exp(-max(z, 0) / 2) in the chosen form.  The clamp keeps a NaN, as
-// jnp.maximum does.
-__device__ __forceinline__ float score_of(float z, int mode) {
-  const float zc = z < 0.0f ? 0.0f : z;
-  if (mode == kExp2) return exp2f(zc * kExp2Scale);
-  if (mode == kApprox) {
-    // Schraudolph's 2^x: x written into the exponent field by integer
-    // arithmetic (pallas_rollout.py, exp_mode="approx").
-    float x = zc * kExp2Scale;
-    x = x < -126.0f ? -126.0f : x;
-    const int i = (int)(x * 8388608.0f) + (127 * (1 << 23) - 366393);
-    return __int_as_float(i);
-  }
-  return expf(-0.5f * zc);
-}
-
-// phi(u), u = [cos dth - 1, sin dth, x - bx, y - by, 1], pairs a <= b, and
-// a 0 in slot 15 (dot16's pad).
-__device__ __forceinline__ void features(const float* pose, const float* bind, int bf16,
-                                         float phi[16]) {
-  const float dth = pose[2] - bind[2];
-  float sn, cs;
-  sincosf(dth, &sn, &cs);
-  const float u[5] = {cs - 1.0f, sn, pose[0] - bind[0], pose[1] - bind[1], 1.0f};
-  int f = 0;
-#pragma unroll
-  for (int a = 0; a < 5; ++a) {
-#pragma unroll
-    for (int b = a; b < 5; ++b) {
-      const float v = u[a] * u[b];
-      phi[f++] = bf16 ? round_bf16(v) : v;
-    }
-  }
-  phi[15] = 0.0f;
-}
-
-// Cost contribution of point rows [i0, i1) of s_w (step di) for one phi.
-__device__ __forceinline__ float score_rows(const float* s_w, int i0, int i1, int di,
-                                            const float phi[16], int mode) {
-  float acc = 0.0f;
-  for (int i = i0; i < i1; i += di) acc += score_of(dot16<15>(s_w + (size_t)i * kRow, phi), mode);
-  return acc;
-}
 
 template <int kPPT>
 __global__ void __launch_bounds__(kThreads)
@@ -146,7 +90,7 @@ rollout_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
   const float zdev[3] = {prm.zdev0, prm.zdev1, prm.zdev2};
 
   extern __shared__ float4 smem4[];
-  float* s_w = reinterpret_cast<float*>(smem4);  // [N, kRow]
+  float* s_w = reinterpret_cast<float*>(smem4);  // [N, kWRow]
   __shared__ ArgminScratch<kThreads> red;
   __shared__ float s_sum[kThreads / 32];
   __shared__ float s_cand[3];
@@ -158,109 +102,17 @@ rollout_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
   auto bind_at = [&](const float* bind) {
     float s0, c0;
     sincosf(bind[2], &s0, &c0);
-    const float half = prm.half;
-    const float cell = prm.cell_side;
     __syncthreads();  // the previous evaluation has finished reading s_w
     for (int i = tid; i < n; i += kThreads) {
-      const float px = pts[i];
-      const float py = pts[n + i];
-      const int ax = (int)pts[2 * n + i];
-      const int ay = (int)pts[3 * n + i];
-      const float valid = pts[4 * n + i];
-      const float rx = px * c0 - py * s0;
-      const float ry = px * s0 + py * c0;
-      const float qx = rx + bind[0];
-      const float qy = ry + bind[1];
-      const bool inb = (qx > -half) && (qx < half) && (qy > -half) && (qy < half);
-      const int di = floor_i32((qx + half) / cell) - ax;
-      const int dj = floor_i32((qy + half) / cell) - ay;
-      float mx = 0.0f, my = 0.0f, la = 0.0f, lb = 0.0f, lc = 0.0f, built = 0.0f;
-      if (abs(di) <= r && abs(dj) <= r) {
-        const float* lane = sten + (size_t)((dj + r) * side + (di + r)) * 8 * n + i;
-        mx = lane[0];
-        my = lane[n];
-        la = lane[2 * n];
-        lb = lane[3 * n];
-        lc = lane[4 * n];
-        built = lane[5 * n];
-      }
-      const float mask = built * (inb ? 1.0f : 0.0f) * valid;
-      const float gx = rx + bind[0] - mx;
-      const float gy = ry + bind[1] - my;
-      const float brx[5] = {rx, -ry, 1.0f, 0.0f, gx};
-      const float bry[5] = {ry, rx, 0.0f, 1.0f, gy};
-      float lbx[5], lby[5];
-#pragma unroll
-      for (int a = 0; a < 5; ++a) {
-        lbx[a] = la * brx[a] + lb * bry[a];
-        lby[a] = lb * brx[a] + lc * bry[a];
-      }
-      float* wrow = s_w + (size_t)i * kRow;
-      int f = 0;
-#pragma unroll
-      for (int a = 0; a < 5; ++a) {
-#pragma unroll
-        for (int c = a; c < 5; ++c) {
-          float m = brx[a] * lbx[c] + bry[a] * lby[c];
-          if (a != c) m = 2.0f * m;
-          m = m * mask;
-          if (f == 14) m = m + (1.0f - mask) * kBig;
-          wrow[f++] = prm.bf16 ? round_bf16(m) : m;
-        }
-      }
-      wrow[15] = 0.0f;
+      const BoundPoint pt =
+          bind_point(pts, sten, n, i, bind, c0, s0, prm.half, prm.cell_side, r);
+      quad_row(pt, bind, n, prm.bf16, s_w + (size_t)i * kWRow);
     }
     __syncthreads();
   };
 
   // Particle j = q * kThreads + tid of this thread, q < kPPT.
   float pos[kPPT][3], vel[kPPT][3], pb[kPPT][3], pbc[kPPT];
-
-  // Cost of each of this thread's particles at the current binding.
-  auto score_own = [&](const float* bind, float cost[kPPT]) {
-#pragma unroll
-    for (int q = 0; q < kPPT; ++q) {
-      cost[q] = 0.0f;
-      if (q * kThreads + tid < p) {
-        float phi[16];
-        features(pos[q], bind, prm.bf16, phi);
-        cost[q] = -score_rows(s_w, 0, n, 1, phi, prm.exp_mode);
-      }
-    }
-  };
-
-  // First-argmin of pbc over the block; the winner's personal best goes to
-  // s_cand.  Returns the minimum (NaN if any cost is NaN).
-  auto merge_best = [&]() -> float {
-    float bv = INFINITY;
-    int bi = 0x7fffffff;
-    int nan = 0;
-#pragma unroll
-    for (int q = 0; q < kPPT; ++q) {
-      const int j = q * kThreads + tid;
-      if (j < p) {
-        if (isnan(pbc[q])) {
-          nan = 1;
-        } else if (better(pbc[q], j, bv, bi)) {
-          bv = pbc[q];
-          bi = j;
-        }
-      }
-    }
-    float mv;
-    int mi;
-    block_argmin_merge<kThreads>(bv, bi, nan, &mv, &mi, red);
-#pragma unroll
-    for (int q = 0; q < kPPT; ++q) {
-      if (q * kThreads + tid == mi) {
-        s_cand[0] = pb[q][0];
-        s_cand[1] = pb[q][1];
-        s_cand[2] = pb[q][2];
-      }
-    }
-    __syncthreads();
-    return mv;
-  };
 
   // --- init (core.cpp:53-69): population, then the global-best seed.
 #pragma unroll
@@ -283,13 +135,13 @@ rollout_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
     for (int k = 0; k < 3; ++k) g_pos[k] = guess[k] + (2.0f * u[k] - 1.0f) * zdev[k];
   }
   bind_at(guess);
-  score_own(guess, pbc);
+  score_particles<kThreads, kPPT>(pos, p, guess, s_w, n, prm.bf16, prm.exp_mode, pbc);
   float g_phi[16];
   features(g_pos, guess, prm.bf16, g_phi);
   const float g_cost =
       -block_sum<kThreads>(score_rows(s_w, tid, n, kThreads, g_phi, prm.exp_mode), s_sum);
   {
-    const float bc = merge_best();
+    const float bc = select_particle<kThreads, kPPT>(pbc, pb, p, red, s_cand);
     if (tid == 0) {
       const bool imp = bc < g_cost;
       for (int k = 0; k < 3; ++k) s_gbest[k] = imp ? s_cand[k] : g_pos[k];
@@ -321,7 +173,7 @@ rollout_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
     }
     bind_at(gb);
     float cost[kPPT];
-    score_own(gb, cost);
+    score_particles<kThreads, kPPT>(pos, p, gb, s_w, n, prm.bf16, prm.exp_mode, cost);
 #pragma unroll
     for (int q = 0; q < kPPT; ++q) {
       if (q * kThreads + tid < p && cost[q] < pbc[q]) {
@@ -331,7 +183,8 @@ rollout_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
         pb[q][2] = pos[q][2];
       }
     }
-    const float bc = merge_best();
+    // The first-argmin personal best goes to s_cand.
+    const float bc = select_particle<kThreads, kPPT>(pbc, pb, p, red, s_cand);
     if (tid == 0) {
       if (bc < s_gcost) {
         for (int k = 0; k < 3; ++k) s_gbest[k] = s_cand[k];
@@ -371,7 +224,7 @@ int launch(const Params& prm, int batch, size_t smem, cudaStream_t stream,
 extern "C" {
 
 // Dynamic shared memory one launch needs (the w rows).
-size_t ndt_rollout_smem_bytes(int n_pts) { return sizeof(float) * kRow * (size_t)n_pts; }
+size_t ndt_rollout_smem_bytes(int n_pts) { return sizeof(float) * kWRow * (size_t)n_pts; }
 
 // Largest population one launch takes (16 particles per thread).
 int ndt_rollout_max_population() { return 16 * kThreads; }

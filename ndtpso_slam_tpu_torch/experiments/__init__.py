@@ -1,10 +1,14 @@
-"""Variant studies of the scoring and scatter kernels, ported from the TPU
-studies under ``experiments/``.  Each is an entry point:
+"""Variant studies of the scoring and scatter kernels and the bring-up
+probes, ported from the TPU scripts under ``experiments/``.  Each is an
+entry point:
 
     python -m ndtpso_slam_tpu_torch.experiments.kernel_variants [--device cpu]
     python -m ndtpso_slam_tpu_torch.experiments.rollout_score_variants [--device cpu]
     python -m ndtpso_slam_tpu_torch.experiments.pallas_variants [--device cpu]
     python -m ndtpso_slam_tpu_torch.experiments.scatter_unique_ab [--device cpu]
+    python -m ndtpso_slam_tpu_torch.experiments.io_probe [min|smem|sten3|sten4|all] [--device cpu]
+    python -m ndtpso_slam_tpu_torch.experiments.mosaic_probe [--device cpu]
+    python -m ndtpso_slam_tpu_torch.experiments.rollout_bisect STAGE|all [--binding] [--device cpu]
 
 They run on the CUDA device unless given ``--device cpu``, which runs the
 plain PyTorch versions (for rehearsal: no time printed there is a device
@@ -22,10 +26,19 @@ import torch
 from ndtpso_slam_tpu_torch import config
 
 
-def parse_device(description: str, argv=None) -> torch.device:
+def parse_args(description: str, argv=None, add_arguments=None):
+    """(device, parsed arguments): ``--device`` and whatever
+    ``add_arguments(parser)`` adds."""
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--device", default=config.DEFAULT_DEVICE, help="cuda (default) or cpu")
-    return config.resolve_device(ap.parse_args(argv).device)
+    if add_arguments is not None:
+        add_arguments(ap)
+    args = ap.parse_args(argv)
+    return config.resolve_device(args.device), args
+
+
+def parse_device(description: str, argv=None) -> torch.device:
+    return parse_args(description, argv)[0]
 
 
 def log(*args) -> None:

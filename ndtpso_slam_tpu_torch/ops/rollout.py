@@ -94,18 +94,18 @@ def pack_rollout_inputs(nbr: cost_mod.NeighborhoodBind, points: torch.Tensor):
     return sten, pts
 
 
-def packed_bound_w(
+def packed_bind(
     binds: torch.Tensor,  # [B, 3]
     sten: torch.Tensor,  # [B, K2, 8, N]
     pts: torch.Tensor,  # [B, 8, N]
     map_cfg: MapConfig,
     radius: int,
-) -> torch.Tensor:  # [B, N, 15]
-    """The kernel's rebind: each point's stencil lane at the binding pose
-    (``bind_points_local``) and its 15 quadratic-form coefficients
-    (``_quadform_bound``), with the mask folded in as the kernel does:
-    ``w *= mask`` and ``w14 += (1 - mask) · 1e9``, so a masked point scores
-    exp(-5e8) == 0."""
+):
+    """The kernel's point binding at the binding pose (``bind_points_local``):
+    the rotated points rx, ry [B, N], each point's stencil lane [B, 8, N]
+    (its cell's row of the 25-cell stencil; rows mx, my, la, lb, lc, built)
+    and the validity mask [B, N] (built, in the frame, valid; 0 outside the
+    stencil)."""
     f32 = torch.float32
     side = 2 * radius + 1
     bx, by = binds[:, 0:1], binds[:, 1:2]
@@ -124,6 +124,23 @@ def packed_bound_w(
     lane = sten.gather(1, kk[:, None, None, :].expand(-1, 1, 8, -1))[:, 0]  # [B, 8, N]
     zero = torch.zeros((), dtype=f32, device=pts.device)
     mask = torch.where(in_st, lane[:, 5], zero) * inb.to(f32) * pts[:, 4]
+    return rx, ry, lane, mask
+
+
+def packed_bound_w(
+    binds: torch.Tensor,  # [B, 3]
+    sten: torch.Tensor,  # [B, K2, 8, N]
+    pts: torch.Tensor,  # [B, 8, N]
+    map_cfg: MapConfig,
+    radius: int,
+) -> torch.Tensor:  # [B, N, 15]
+    """The kernel's rebind: each point's stencil lane at the binding pose
+    (:func:`packed_bind`) and its 15 quadratic-form coefficients
+    (``_quadform_bound``), with the mask folded in as the kernel does:
+    ``w *= mask`` and ``w14 += (1 - mask) · 1e9``, so a masked point scores
+    exp(-5e8) == 0."""
+    bx, by = binds[:, 0:1], binds[:, 1:2]
+    rx, ry, lane, mask = packed_bind(binds, sten, pts, map_cfg, radius)
     gx = rx + bx - lane[:, 0]
     gy = ry + by - lane[:, 1]
     la, lb, lc = lane[:, 2], lane[:, 3], lane[:, 4]
