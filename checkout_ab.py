@@ -1,0 +1,180 @@
+"""Times the whole-solve kernels K1 and K2, E7's stages 1-3, the
+scan.launch step and K1's host time of one or more checkouts of this
+repository, on one GPU.
+
+    python checkout_ab.py ROOT [ROOT ...] [--clusters]
+
+Each ROOT is a checkout (its package and its chip_smoke.py).  Each runs in a
+process of its own that imports only from its ROOT, in the order given, so an
+A/B of two checkouts on one card names them in turns: A B B A.  The
+workloads are chip_smoke.py's own, built by the checkout's chip_smoke.py:
+phase 4's 50-scan scan.launch log (step latency, over STEP_RUNS runs of the
+log, each on a new node; then K1 at B=1 on the next solve's inputs: its
+CUDA-event time, the host time of one wrapper call until it returns, and
+the wall time of a call and a synchronize), phase 5's
+batch world (K2 f32 and turbo with early exit 2 at B=256; K2 bf16 and K1
+turbo on its first 16 solves) and E7's binding inputs at K2's shape
+(stages 1-3).  Kernel times are CUDA events (chip_smoke.py's
+``_events_ms``); host times are medians of ``time.perf_counter``.  Prints
+one JSON line per ROOT, with the card's name and power limit.
+``--clusters`` adds, for checkouts whose wrappers take ``cluster=``, K1
+turbo and K2 bf16 at B=16 on every cluster size that fits.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+CLUSTERS = (1, 2, 4, 8)
+HOST_REPS = 300
+STEP_RUNS = 5
+
+
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def _k1_next_solve(cs, node, lg):
+    """K1's arguments for the solve the main path would run next (as
+    chip_smoke.py's phase_main_kernel builds them)."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.models import ndt_map
+    from ndtpso_slam_tpu_torch.models import scan as scan_mod
+    from ndtpso_slam_tpu_torch.ops import rng
+
+    cfg, st = node.slam_cfg, node.state
+    scan = scan_mod.load_laser(lg.ranges[-1], lg.angle_min, lg.angle_increment,
+                               lg.range_max, cfg.scan, cfg.map)
+    snap = ndt_map.snapshot(st.map, cfg.map)
+    guess = st.pose[None]
+    devs = torch.abs(st.align.pose_diff * cfg.deviation_scale)[None]
+    sten, pts = cs._pack(snap, cfg.map, guess, scan.points, scan.valid)
+    keys = torch.tensor([rng.derive_key(node._key, st.step)], dtype=torch.int64,
+                        device=guess.device)
+    return (keys, guess, devs, sten, pts, cfg.pso, cfg.map)
+
+
+def _host_us(fn):
+    """Medians over HOST_REPS calls, in µs: until fn returns, and until the
+    card has finished it.  The card is idle before each call."""
+    import torch
+
+    ret, done = [], []
+    for _ in range(HOST_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        ret.append(t1 - t0)
+        done.append(time.perf_counter() - t0)
+    med = lambda xs: sorted(xs)[len(xs) // 2] * 1e6
+    return med(ret), med(done)
+
+
+def _cluster_times(cs, rl, ro, small, out):
+    """K1 turbo and K2 bf16 on small's solves at every cluster size that fits
+    a CTA's shared memory."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.ops import _build
+
+    pl, pf = cs._packed(small, local=True), cs._packed(small)
+    n, p = pf[4].shape[-1], small["pso_cfg"].population
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    for c in CLUSTERS:
+        for name, fn, smem in (
+            ("k1_turbo_b16", lambda: rl.pso_rollout_local(*pl, rng_mode="native", cluster=c),
+             rl.smem_bytes(n, p, c)),
+            ("k2_bf16_b16", lambda: ro.pso_rollout(*pf, score_dtype="bf16", cluster=c),
+             ro.smem_bytes(n, p, c)),
+        ):
+            fits = smem + _build.STATIC_SMEM <= limit
+            out[f"{name}_c{c}_ms"] = cs._events_ms(fn, 3) if fits else None
+
+
+def measure(root: str, clusters: bool) -> dict:
+    """The numbers of one checkout, imported from root."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    import chip_smoke as cs
+    from ndtpso_slam_tpu_torch.experiments import rollout_bisect as rbx
+    from ndtpso_slam_tpu_torch.ops import _build
+    from ndtpso_slam_tpu_torch.ops import rollout as ro
+    from ndtpso_slam_tpu_torch.ops import rollout_bisect as rb
+    from ndtpso_slam_tpu_torch.ops import rollout_local as rl
+
+    for mod in (cs, ro):
+        if not os.path.abspath(mod.__file__).startswith(root):
+            raise RuntimeError(f"imported {mod.__file__}, not from {root}")
+    _build.build(rl.LIB, ro.LIB, rb.LIB)  # before any timing
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    out = {"root": root, "card": _smi()}
+    for key in ("scans_s", "step_p50_ms", "step_p95_ms"):
+        out[key] = []
+    for _ in range(STEP_RUNS):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            node, lg, _ = cs.phase_main()
+        m = re.search(r"([\d.]+) scans/s; aligned-step latency p50 ([\d.]+) ms p95 ([\d.]+) ms",
+                      buf.getvalue())
+        for key, x in zip(("scans_s", "step_p50_ms", "step_p95_ms"), m.groups()):
+            out[key].append(float(x))
+    args = _k1_next_solve(cs, node, lg)
+    out["k1_b1_ms"] = cs._events_ms(lambda: rl.pso_rollout_local(*args), 50)
+    out["k1_b1_host_us"], out["k1_b1_call_sync_us"] = _host_us(lambda: rl.pso_rollout_local(*args))
+
+    world = cs.batch_world(256, dev)
+    packed = cs._packed(world)
+    out["k2_f32_b256_ms"] = cs._events_ms(lambda: ro.pso_rollout(*packed), 3)
+    out["k2_turbo_ee2_b256_ms"] = cs._events_ms(
+        lambda: ro.pso_rollout(*packed, rng_mode="native", early_exit=2), 3)
+    small = cs._first(world, 16)
+    ps, pl = cs._packed(small), cs._packed(small, local=True)
+    out["k2_bf16_b16_ms"] = cs._events_ms(lambda: ro.pso_rollout(*ps, score_dtype="bf16"), 3)
+    out["k1_turbo_b16_ms"] = cs._events_ms(lambda: rl.pso_rollout_local(*pl, rng_mode="native"), 3)
+    del packed, ps, pl
+    args = rbx.binding_inputs(dev, b=256, n=384)
+    for s in (1, 2, 3):
+        out[f"e7_stage{s}_ms"] = cs._events_ms(
+            lambda: rb.rollout_bisect(s, *args, population=4096, iterations=50), 3)
+    if clusters and hasattr(ro, "smem_bytes"):
+        _cluster_times(cs, rl, ro, small, out)
+    return out
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    clusters = "--clusters" in argv
+    argv = [a for a in argv if a != "--clusters"]
+    if argv[:1] == ["--one"]:
+        print(json.dumps(measure(argv[1], clusters)))
+        return 0
+    for root in map(os.path.abspath, argv):
+        cmd = [sys.executable, os.path.abspath(__file__), "--one", root]
+        res = subprocess.run(cmd + (["--clusters"] if clusters else []), cwd=root,
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            print(res.stdout[-4000:] + res.stderr[-4000:], file=sys.stderr)
+            return res.returncode
+        print(res.stdout.strip().splitlines()[-1], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,7 +6,13 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Device and build: requires a CUDA device, prints the card's name and power
    limit (nvidia-smi), builds the seven kernel libraries from csrc/ (one nvcc
-   each, all at once) and prints what ptxas reports of each kernel.
+   each, all at once) and prints what ptxas reports of each kernel
+   instantiation (its name, registers, spills).
+
+K1 (csrc/rollout_local.cu) and K2 (csrc/rollout.cu) run one solve per
+thread-block cluster of C CTAs, C chosen by ops/_build.py:choose_cluster
+(8 at small batches); their kernels-line entries carry the C each ran with
+(`cluster`).
 2. Kernel against its plain PyTorch version: B=3 solves, N=384 points,
    P in {50, 200}, 10 iterations, on a small synthetic map.
 3. Kernel path against the plain path: 8 scans of SlamNode with
@@ -16,13 +22,16 @@ Phases (any failure exits non-zero and prints no result line):
    over the 50-scan synthetic log of bench.py's SLAM workload; the per-robot
    trajectory gate of bench.py (mean error < 0.35 m, max < 0.7 m) and the
    kernel's launch count; then the kernel against its plain version, both
-   timed, on the inputs of the solve that run would make next.
+   timed, on the inputs of the solve that run would make next; then the
+   log's last 10 scans fed again under torch.profiler (kernels per scan,
+   device busy share, K1's share).
 5. Batch scan matching (parallel/mesh.py:solve_batch), bench.py's ``batch``
    workload:
    a. each kernel against its plain version on small inputs: the frozen
       rollout kernel in rollout, rollout_bf16 and rollout_turbo at B=3,
       N=384, P in {50, 200, 4096}, I=10, and with early exit 2; the turbo
-      branch of the exact rollout kernel at B=3, P=50; the scoring kernel at
+      branch of the exact rollout kernel at B=3, P=50, and its Threefry
+      branch at B=3, P=8192 (16 particles per thread); the scoring kernel at
       B=4, P=4096, N=384 on binds of the 5b workload;
    b. solve_batch at full width (B=256 solves of a 64 m map of 1 m cells,
       P=4096, I=50, 360 beams padded to 384) in rollout, rollout_turbo
@@ -35,7 +44,8 @@ Phases (any failure exits non-zero and prints no result line):
    c. rollout_bf16, rollout_turbo_bf16, fast_local_fused and
       rollout_local_turbo at B=16, the same widths: finite results, launch
       counts, and the two kernels not yet timed, against their plain
-      versions as in 5b.
+      versions as in 5b, with the clusters of each size the card holds at
+      once at their shapes (cudaOccupancyMaxActiveClusters).
 6. The variant studies ported from the TPU (ndtpso_slam_tpu_torch/experiments/),
    each driven once through the run() its entry point calls, at the TPU
    script's shapes, with the launch counts set to 0 just before and read
@@ -62,7 +72,8 @@ Phases (any failure exits non-zero and prints no result line):
       script's shape, on its inputs and on inputs whose points bind, then
       stages 1, 2 and 3 at K2's batch shape (B=256, P=4096, N=384, I=50):
       the draws and the update, the bind and the score as differences of
-      their times, beside K2's time from phase 5b; at that shape, stage 3
+      their times, and what K2 spends beyond stage 3 (K2-only), from K2's
+      time in phase 5b; at that shape, stage 3
       with no PSO step held to one evaluation's sum order on the binding
       inputs and on a flat landscape, and a witness printed: after 0-50
       steps, kernel against plain version and plain float32 against
@@ -180,9 +191,29 @@ def phase_device():
           f"{time.perf_counter() - t0:.2f} s")
     for path in paths:
         log = path.with_suffix(".log")
-        for line in (log.read_text().splitlines() if log.exists() else []):
-            if "registers" in line or "spill" in line:
-                print(f"[phase 1] {path.stem.split('-')[0]}: {line.strip()}")
+        for line in _ptxas_summary(log.read_text() if log.exists() else ""):
+            print(f"[phase 1] {path.stem.split('-')[0]}: {line}")
+
+
+def _ptxas_summary(log):
+    """One line per kernel instantiation of an nvcc -Xptxas -v log: its
+    name with its mangled template arguments, registers, stack frame and
+    spill bytes."""
+    import re
+
+    out, name, frame = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:  # the kernel's name and template arguments, as mangled
+            short = re.search(r"\d+([a-z_]*kernel)(I\w*?E)?E", m.group(1))
+            name = "".join(g or "" for g in short.groups()) if short else m.group(1)
+        elif "spill" in line:
+            frame = line.strip()
+        elif "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append(f"{name}: {regs.group(1) if regs else '?'} registers, {frame}")
+            name, frame = None, ""
+    return out
 
 
 def _small_world(dev):
@@ -330,6 +361,37 @@ def phase_main():
     return node, lg, launches
 
 
+# Phase 4's profiled window: the log's last scans fed again after the gated
+# run (the map and the pose carry on), one torch.profiler window over them.
+PROFILE_SCANS = 10
+
+
+def phase_main_profile(node, lg):
+    """Phase 4's step under torch.profiler: device kernels per scan, device
+    busy share of the wall time, and K1's share of the device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    idx = range(len(lg.ranges) - PROFILE_SCANS, len(lg.ranges))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in idx:
+            node.process_scan(lg.ranges[i], lg.angle_min, lg.angle_increment, lg.range_max,
+                              timestamp=float(lg.timestamps[i]))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / PROFILE_SCANS
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+    busy = sum(dev_us(e) for e in kern) / 1e3 / PROFILE_SCANS
+    k1 = sum(dev_us(e) for e in kern if "rollout_local_kernel" in e.key) / 1e3 / PROFILE_SCANS
+    launches = sum(e.count for e in kern) / PROFILE_SCANS
+    print(f"[phase 4] profiled, {PROFILE_SCANS} more scans: {launches:.1f} device kernels per scan, "
+          f"busy {busy:.3f} of {wall:.3f} ms per scan ({100 * busy / wall:.1f}%), K1 {k1:.4f} ms "
+          f"({100 * k1 / busy:.1f}% of device time)")
+
+
 def _events_ms(fn, reps):
     """ms per call over reps calls after a warm one (CUDA events)."""
     import torch
@@ -364,11 +426,13 @@ def phase_main_kernel(node, lg):
     dpose, dcost = compare_kernel(*args)
     ms = _events_ms(lambda: rl.pso_rollout_local(*args), 50)
     plain_ms = _events_ms(lambda: rl.pso_rollout_local_reference(*args), 5)
+    cluster = rl.pso_rollout_local.LAST_CLUSTER
     bnd = _rollout_local_bound(sten, pts, cfg.pso.population, [cfg.pso.iterations])
     print(f"[phase 4] kernel vs plain on the next solve's inputs: max |dpose| "
-          f"{dpose:.3e} max |dcost| {dcost:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bnd[0]:.6f} ms ({bnd[1]}; one solve: one SM of 132, latency-bound)")
-    return max(dpose, dcost), ms, plain_ms, bnd
+          f"{dpose:.3e} max |dcost| {dcost:.3e}; kernel {ms:.4f} ms (one cluster of {cluster} "
+          f"CTAs), plain {plain_ms:.3f} ms, "
+          f"bound {bnd[0]:.6f} ms ({bnd[1]}; one solve, latency-bound)")
+    return max(dpose, dcost), ms, plain_ms, bnd, cluster
 
 
 def _evaluations(population, live_iterations):
@@ -384,7 +448,7 @@ def _rollout_local_bound(sten, pts, population, live_iterations):
 
 def _rollout_bound(sten, pts, population, live_iterations, score_dtype="f32"):
     """K2's bound: each evaluation scores the N points (15 features); bf16
-    operands could contract on the tensor cores."""
+    operands contract on the tensor cores."""
     pairs = _evaluations(population, live_iterations) * pts.shape[-1]  # pts [B, 8, N]
     zpipe = "bf16" if score_dtype == "bf16" else "fp32"
     return bound(_nbytes(sten, pts), **score_ops(pairs, 15, zpipe, masked=False))
@@ -519,14 +583,18 @@ def phase_batch_kernels(world):
               f"max |dpose| {dpose:.3e} max |dcost| {dcost:.3e}")
 
     lsten, lpts = rl.pack_rollout_local_inputs(nbr, points.expand(b, -1, -1))
-    args = (keys, guesses, devs, lsten, lpts, C.PSOConfig(iterations=10, population=50), mc)
-    got = rl.pso_rollout_local(*args, rng_mode="native")
-    torch.cuda.synchronize()
-    ref = rl.pso_rollout_local_reference(*args, rng_mode="native")
-    dpose, dcost = _compare("rollout_local_turbo", got, ref, *_TOLERANCES["rollout_local_turbo"])
-    worst["rollout_local_turbo"] = max(dpose, dcost)
-    print(f"[phase 5a] rollout_local_turbo B={b} N=384 P=50 I=10: "
-          f"max |dpose| {dpose:.3e} max |dcost| {dcost:.3e}")
+    # K1's turbo branch, and its Threefry branch at P=8192 (16 particles per
+    # thread), which the one-block kernel's shared memory could not hold.
+    for name, pop, kw in (("rollout_local_turbo", 50, dict(rng_mode="native")),
+                          ("rollout_local", 8192, dict())):
+        args = (keys, guesses, devs, lsten, lpts, C.PSOConfig(iterations=10, population=pop), mc)
+        got = rl.pso_rollout_local(*args, **kw)
+        torch.cuda.synchronize()
+        ref = rl.pso_rollout_local_reference(*args, **kw)
+        dpose, dcost = _compare(name, got, ref, COST_RTOL, COST_ATOL, POSE_ATOL)
+        worst[name] = max(dpose, dcost)
+        print(f"[phase 5a] {name} B={b} N=384 P={pop} I=10 (cluster "
+              f"{rl.pso_rollout_local.LAST_CLUSTER}): max |dpose| {dpose:.3e} max |dcost| {dcost:.3e}")
 
     worst["score"] = _check_score(_score_inputs(world, 4), "5a", "B=4 N=384 P=4096 F=15")
     return worst
@@ -771,11 +839,13 @@ def phase_batch(world):
             shape = (f"B={b} N=384 P={cfg.population} I={cfg.iterations} ee={ee}, one solve_batch; "
                      f"iterations run {sum(live)} of {b * cfg.iterations}")
         ms = _events_ms(kern, 3)
+        cluster = None if kname == "score" else ro.pso_rollout.LAST_CLUSTER
         plain_ms = _events_ms(plain, 1)
         print(f"[phase 5b] {kname} kernel vs plain ({shape}): max abs err {derr:.3e}; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+              f"kernel {ms:.4f} ms (cluster {cluster}), "
+              f"plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
         launches_main = counts["score" if kname == "score" else "rollout"]
-        out[kname] = (launches_main, ms, plain_ms, derr, bnd)
+        out[kname] = (launches_main, ms, plain_ms, derr, bnd, cluster)
     return out
 
 
@@ -836,12 +906,46 @@ def phase_batch_small(world):
         else:
             continue
         ms = _events_ms(kern, 3)
+        lib = rl.pso_rollout_local if name == "rollout_local_turbo" else ro.pso_rollout
+        cluster = lib.LAST_CLUSTER
         plain_ms = _events_ms(plain, 1)
+        held = _clusters_held(name, packed[4].shape[-2 if name == "rollout_local_turbo" else -1],
+                              cfg.population)
         print(f"[phase 5c] {name} kernel vs plain (B={BATCH_SMALL} N=384 P={cfg.population} "
-              f"I={cfg.iterations}): max abs err {derr:.3e}; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
-        out[name] = (lc, ms, plain_ms, derr, bnd)
+              f"I={cfg.iterations}): max abs err {derr:.3e}; kernel {ms:.4f} ms (cluster "
+              f"{cluster}), plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); clusters "
+              f"the card holds at once, by C: {held}")
+        out[name] = (lc, ms, plain_ms, derr, bnd, cluster)
     return out
+
+
+def _clusters_held(name, n_pts, population):
+    """{C: the most clusters of C CTAs the card holds at once}
+    (cudaOccupancyMaxActiveClusters) for K1 (``rollout_local*``) or K2 at
+    this shape, for every C whose CTA fits the shared memory."""
+    import ctypes
+
+    import torch
+
+    from ndtpso_slam_tpu_torch.ops import _build
+    from ndtpso_slam_tpu_torch.ops import rollout as ro
+    from ndtpso_slam_tpu_torch.ops import rollout_local as rl
+
+    limit = _build.device_limits(torch.cuda.current_device())[0]
+    local = name.startswith("rollout_local")
+    lib = _build.load(rl.LIB if local else ro.LIB)
+    held = {}
+    for c in _build.CLUSTER_SIZES:
+        smem = rl.smem_bytes(n_pts, population, c) if local else ro.smem_bytes(n_pts, population, c)
+        if smem + _build.STATIC_SMEM > limit:
+            continue
+        out = ctypes.c_int(0)
+        err = (lib.ndt_rollout_local_max_active_clusters(n_pts, population, c, 2, ctypes.byref(out))
+               if local else lib.ndt_rollout_max_active_clusters(n_pts, population, c,
+                                                                ctypes.byref(out)))
+        check(err == 0, f"{name}: cudaOccupancyMaxActiveClusters at C={c} failed ({err})")
+        held[c] = out.value
+    return held
 
 
 # Phase 6: a scoring variant against its plain version.  Both make the same
@@ -1481,13 +1585,13 @@ def phase_rollout_bisect(dev, k2_ms):
         first = _bisect_first_evaluations(tag, inputs, p_w)
         variants[f"stage3_no_step_{tag}"] = dict(max_abs_err=first)
         _bisect_witness(tag, inputs, p_w)
-    split = (ms[1], ms[2] - ms[1], ms[3] - ms[2])
+    split = (ms[1], ms[2] - ms[1], ms[3] - ms[2], k2_ms - ms[3])
     print(f"[phase 6g] K2's time split (B={b_w} P={p_w} N={n_w} I={i_w}): draws+update / bind / "
-          f"score = {split[0]:.4f} / {split[1]:.4f} / {split[2]:.4f} ms; stage 3 {ms[3]:.4f} ms "
-          f"beside K2 (phase 5b) {k2_ms:.4f} ms")
+          f"score / K2-only = {split[0]:.4f} / {split[1]:.4f} / {split[2]:.4f} / {split[3]:.4f} ms; "
+          f"stage 3 {ms[3]:.4f} ms beside K2 (phase 5b) {k2_ms:.4f} ms")
     entry = _study_entry("rollout_bisect", "rollout_bisect.cu", "experiments/rollout_bisect.py:219",
                          launches, variants, "stage3_wide")
-    entry["split_ms"] = dict(zip(("draws_update", "bind", "score"), split))
+    entry["split_ms"] = dict(zip(("draws_update", "bind", "score", "k2_only"), split))
     entry["k2_ms"] = k2_ms
     return entry
 
@@ -1521,14 +1625,16 @@ def main() -> int:
     worst = phase_kernel()
     phase_paths()
     node, lg, launches = phase_main()
-    worst_main, ms, plain_ms, bnd = phase_main_kernel(node, lg)
+    worst_main, ms, plain_ms, bnd, cluster = phase_main_kernel(node, lg)
+    phase_main_profile(node, lg)
     world = batch_world(BATCH, torch.device("cuda"))
     worst_small = phase_batch_kernels(world)
     timed = phase_batch(world)
     timed.update(phase_batch_small(world))
     tpu = "ndtpso_slam_tpu/ops/"
     kernels = [_entry("rollout_local", SRC + "rollout_local.cu", tpu + "pallas_rollout.py:551",
-                      launches, max(worst, worst_main), ms, plain_ms, bnd)]
+                      launches, max(worst, worst_main, worst_small["rollout_local"]), ms, plain_ms,
+                      bnd, cluster=cluster)]
     for name, source, replaces in (
         ("rollout_local_turbo", "rollout_local.cu", "pallas_rollout.py:618"),
         ("rollout", "rollout.cu", "pallas_rollout.py:111"),
@@ -1536,9 +1642,10 @@ def main() -> int:
         ("rollout_turbo", "rollout.cu", "pallas_rollout.py:148"),
         ("score", "score.cu", "pallas_score.py:41"),
     ):
-        n_launch, k_ms, p_ms, wide_err, k_bnd = timed[name]
+        n_launch, k_ms, p_ms, wide_err, k_bnd, k_cluster = timed[name]
+        extra = {} if name == "score" else dict(cluster=k_cluster)
         kernels.append(_entry(name, SRC + source, tpu + replaces, n_launch,
-                              max(worst_small[name], wide_err), k_ms, p_ms, k_bnd))
+                              max(worst_small[name], wide_err), k_ms, p_ms, k_bnd, **extra))
     kernels.extend(phase_studies(timed["rollout"][1]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

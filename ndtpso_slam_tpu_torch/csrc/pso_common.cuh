@@ -6,20 +6,35 @@
 // * philox4x32: the turbo stream (ops/rng.py:philox4x32, counter layout in
 //   ops/rng.py:philox_uniforms).
 // * u01: u32 -> [0, 1) as (bits >> 8) * 2^-24, exact in float32.
-// * init_uniforms / step_uniforms: one particle's draws in either stream.
-// * dot16: the fused-multiply-add chain z = w . phi of rollout.cu and score.cu.
+// * init_uniforms / step_uniforms: one particle's draws in either stream
+//   (the stream a template parameter).
+// * dot16 / dot15: the fused-multiply-add chain z = w . phi of rollout.cu and
+//   score.cu.
 // * block_argmin: the first-argmin merge of models/pso.py:_select_min, with
 //   its NaN rule.
 // * The frozen-correspondence score of rollout.cu (K2) and its staged twin
 //   rollout_bisect.cu: bind_point / quad_row (one point's stencil cell and
-//   w row at the binding pose), features, score_rows, score_particles and
-//   select_particle (one block's particles, ceil(P / kThreads) per thread).
+//   w row at the binding pose), features, score_rows, score_tile (the score
+//   loop: rows outside, a register tile of particles inside), score_shared
+//   (K2's score of every particle, its state in shared memory), score_mma
+//   (the same with bf16 operands, on the tensor cores) and select_particle.  The scoring switches (exp mode,
+//   bf16 operands) are template parameters, so the score loop has no
+//   runtime branch on them.
+// * One solve per thread-block cluster (K1, K2): cluster_total adds the C
+//   CTAs' partial costs of one particle in rank order, and launch_cluster
+//   launches a kernel with its cluster dimension.
 
 #pragma once
 
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 namespace ndt {
 
@@ -103,10 +118,10 @@ __device__ inline void philox_u3(uint32_t k0, uint32_t k1, uint32_t particle, ui
 // Uniforms of the initial position of particle j < p, or, for j == p, of
 // the global-best seed: Threefry counters 3 + 3j + k (seed: k), low word;
 // Philox counter (j, 0, kPhiloxInit) (seed: (0, 0, kPhiloxSeed)).
-__device__ inline void init_uniforms(int philox, uint32_t k0, uint32_t k1, int j, int p,
-                                     float u[3]) {
+template <bool kPhilox>
+__device__ inline void init_uniforms(uint32_t k0, uint32_t k1, int j, int p, float u[3]) {
   const bool seed = j == p;
-  if (philox) {
+  if (kPhilox) {
     philox_u3(k0, k1, seed ? 0u : (uint32_t)j, 0u, seed ? kPhiloxSeed : kPhiloxInit, u);
     return;
   }
@@ -122,9 +137,10 @@ __device__ inline void init_uniforms(int philox, uint32_t k0, uint32_t k1, int j
 // r1, r2 of particle j at iteration it: Threefry counter
 // 3 + 3p + 3p * it + 3j + k, words (lo, hi); Philox counters
 // (j, it + 1, kPhiloxR1) and (j, it + 1, kPhiloxR2).
-__device__ inline void step_uniforms(int philox, uint32_t k0, uint32_t k1, int j, int p, int it,
-                                     float r1[3], float r2[3]) {
-  if (philox) {
+template <bool kPhilox>
+__device__ inline void step_uniforms(uint32_t k0, uint32_t k1, int j, int p, int it, float r1[3],
+                                     float r2[3]) {
+  if (kPhilox) {
     philox_u3(k0, k1, (uint32_t)j, (uint32_t)it + 1u, kPhiloxR1, r1);
     philox_u3(k0, k1, (uint32_t)j, (uint32_t)it + 1u, kPhiloxR2, r2);
     return;
@@ -143,7 +159,27 @@ __device__ inline void step_uniforms(int philox, uint32_t k0, uint32_t k1, int j
 // (16-byte aligned).  An explicit chain of fused multiply-adds, as the plain
 // version's matrix product (cuBLAS) computes it: at 30 m ranges the terms
 // reach ~1e4 and cancel down to z ~ 1, so unfused products would cost
-// accuracy.
+// accuracy.  dot15: the same chain over the first 15 features of a row
+// already loaded as four float4s.
+__device__ __forceinline__ float dot15(const float4& a, const float4& b, const float4& c,
+                                       const float4& d, const float phi[16]) {
+  float z = a.x * phi[0];
+  z = fmaf(a.y, phi[1], z);
+  z = fmaf(a.z, phi[2], z);
+  z = fmaf(a.w, phi[3], z);
+  z = fmaf(b.x, phi[4], z);
+  z = fmaf(b.y, phi[5], z);
+  z = fmaf(b.z, phi[6], z);
+  z = fmaf(b.w, phi[7], z);
+  z = fmaf(c.x, phi[8], z);
+  z = fmaf(c.y, phi[9], z);
+  z = fmaf(c.z, phi[10], z);
+  z = fmaf(c.w, phi[11], z);
+  z = fmaf(d.x, phi[12], z);
+  z = fmaf(d.y, phi[13], z);
+  return fmaf(d.z, phi[14], z);
+}
+
 template <int F>
 __device__ __forceinline__ float dot16(const float* row, const float phi[16]) {
   static_assert(F == 15 || F == 16, "15 or 16 features");
@@ -282,12 +318,13 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __uint_as_float(u & 0xffff0000u);
 }
 
-// exp(-max(z, 0) / 2) in the chosen form.  The clamp keeps a NaN, as
+// exp(-max(z, 0) / 2) in the form kMode.  The clamp keeps a NaN, as
 // jnp.maximum does.
-__device__ __forceinline__ float score_of(float z, int mode) {
+template <int kMode>
+__device__ __forceinline__ float score_of(float z) {
   const float zc = z < 0.0f ? 0.0f : z;
-  if (mode == kExp2) return exp2f(zc * kExp2Scale);
-  if (mode == kApprox) {
+  if (kMode == kExp2) return exp2f(zc * kExp2Scale);
+  if (kMode == kApprox) {
     // Schraudolph's 2^x: x written into the exponent field by integer
     // arithmetic (pallas_rollout.py, exp_mode="approx").
     float x = zc * kExp2Scale;
@@ -342,7 +379,8 @@ __device__ __forceinline__ BoundPoint bind_point(const float* pts, const float* 
 // for a bound point, with the mask folded in (w *= mask; w14 += (1 - mask) *
 // 1e9, so a masked point scores exp(-5e8) == 0 exactly), rounded to bfloat16
 // if bf16, into wrow[0..15] (slot 15: dot16's 0 pad).
-__device__ __forceinline__ void quad_row(const BoundPoint& bp, const float* bind, int n, int bf16,
+template <bool kBf16>
+__device__ __forceinline__ void quad_row(const BoundPoint& bp, const float* bind, int n,
                                          float* wrow) {
   float mx = 0.0f, my = 0.0f, la = 0.0f, lb = 0.0f, lc = 0.0f;
   if (bp.lane != nullptr) {
@@ -372,16 +410,16 @@ __device__ __forceinline__ void quad_row(const BoundPoint& bp, const float* bind
       if (a != c) m = 2.0f * m;
       m = m * mask;
       if (f == 14) m = m + (1.0f - mask) * kMaskBig;
-      wrow[f++] = bf16 ? round_bf16(m) : m;
+      wrow[f++] = kBf16 ? round_bf16(m) : m;
     }
   }
   wrow[15] = 0.0f;
 }
 
 // phi(u), u = [cos dth - 1, sin dth, x - bx, y - by, 1], pairs a <= b,
-// rounded to bfloat16 if bf16, and a 0 in slot 15 (dot16's pad).
-__device__ __forceinline__ void features(const float* pose, const float* bind, int bf16,
-                                         float phi[16]) {
+// rounded to bfloat16 if kBf16, and a 0 in slot 15 (dot16's pad).
+template <bool kBf16>
+__device__ __forceinline__ void features(const float* pose, const float* bind, float phi[16]) {
   const float dth = pose[2] - bind[2];
   float sn, cs;
   sincosf(dth, &sn, &cs);
@@ -392,7 +430,7 @@ __device__ __forceinline__ void features(const float* pose, const float* bind, i
 #pragma unroll
     for (int b = a; b < 5; ++b) {
       const float v = u[a] * u[b];
-      phi[f++] = bf16 ? round_bf16(v) : v;
+      phi[f++] = kBf16 ? round_bf16(v) : v;
     }
   }
   phi[15] = 0.0f;
@@ -400,47 +438,192 @@ __device__ __forceinline__ void features(const float* pose, const float* bind, i
 
 // Cost contribution of point rows [i0, i1) of s_w [N, kWRow] (step di) for
 // one phi.
+template <int kMode>
 __device__ __forceinline__ float score_rows(const float* s_w, int i0, int i1, int di,
-                                            const float phi[16], int mode) {
+                                            const float phi[16]) {
   float acc = 0.0f;
-  for (int i = i0; i < i1; i += di)
-    acc += score_of(dot16<15>(s_w + (size_t)i * kWRow, phi), mode);
+  for (int i = i0; i < i1; i += di) acc += score_of<kMode>(dot16<15>(s_w + (size_t)i * kWRow, phi));
   return acc;
 }
 
-// Cost of each of this thread's particles j = q * kThreads + threadIdx.x
-// (j < p) at the binding pose whose w rows s_w holds: minus the score summed
-// over all N points.  0 for q past the population.
-template <int kThreads, int kPPT>
-__device__ __forceinline__ void score_particles(const float (*pos)[3], int p, const float* bind,
-                                                const float* s_w, int n, int bf16, int mode,
-                                                float cost[kPPT]) {
+// The score loop: the summed scores of a tile of kT particles over rows
+// [0, rows) of s_w, bound at `bind`.  pose_of(t, pose) writes the pose of
+// the tile's particle t and returns whether it is live; a dead particle
+// scores 0.  Rows run on the outside, the tile on the inside: each w row is
+// loaded once (four broadcast LDS.128) for kT independent fmaf chains.  Each
+// (row, particle) pair is dot15's chain and each particle's sum runs over
+// the rows in order, so z and the sum round as score_rows rounds them.
+template <int kT, int kMode, class PoseFn>
+__device__ __forceinline__ void score_tile(PoseFn pose_of, const float* bind, const float* s_w,
+                                           int rows, float part[kT]) {
+  float phi[kT][16];
+  bool live[kT];
+  bool any = false;
 #pragma unroll
-  for (int q = 0; q < kPPT; ++q) {
-    cost[q] = 0.0f;
-    if (q * kThreads + (int)threadIdx.x < p) {
-      float phi[16];
-      features(pos[q], bind, bf16, phi);
-      cost[q] = -score_rows(s_w, 0, n, 1, phi, mode);
+  for (int t = 0; t < kT; ++t) {
+    float pose[3] = {0.0f, 0.0f, 0.0f};
+    live[t] = pose_of(t, pose);
+    any |= live[t];
+    features<false>(pose, bind, phi[t]);
+    part[t] = 0.0f;
+  }
+  if (!any) return;
+  for (int i = 0; i < rows; ++i) {
+    const float4* r4 = reinterpret_cast<const float4*>(s_w + (size_t)i * kWRow);
+    const float4 a = r4[0], b = r4[1], c = r4[2], d = r4[3];
+#pragma unroll
+    for (int t = 0; t < kT; ++t) part[t] += score_of<kMode>(dot15(a, b, c, d, phi[t]));
+  }
+#pragma unroll
+  for (int t = 0; t < kT; ++t) part[t] = live[t] ? part[t] : 0.0f;
+}
+
+// K2's score of every particle j < p whose position lies in shared memory,
+// s_pos [3, P] (component k at k * P + j), over rows [0, rows) of s_w bound
+// at `bind`: on_score(j, summed scores) for each, called by thread
+// j % kThreads, through score_tile in register tiles of 4 particles.
+template <int kThreads, int kMode, class OnScore>
+__device__ __forceinline__ void score_shared(const float* s_pos, int p, const float* bind,
+                                             const float* s_w, int rows, OnScore on_score) {
+  constexpr int kT = 4;
+  const int tid = threadIdx.x;
+  for (int q0 = 0; q0 * kThreads < p; q0 += kT) {
+    float part[kT];
+    score_tile<kT, kMode>(
+        [&](int t, float pose[3]) {
+          const int j = (q0 + t) * kThreads + tid;
+          if (j >= p) return false;
+          pose[0] = s_pos[j];
+          pose[1] = s_pos[p + j];
+          pose[2] = s_pos[2 * p + j];
+          return true;
+        },
+        bind, s_w, rows, part);
+#pragma unroll
+    for (int t = 0; t < kT; ++t) {
+      const int j = (q0 + t) * kThreads + tid;
+      if (j < p) on_score(j, part[t]);
+    }
+  }
+}
+
+// Two floats (bfloat16 values already) as one bf16x2 register, lo in the
+// low half.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d = a . b on the tensor cores: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col),
+// d 16 x 8 float32.  The products of two bf16 values are exact in float32.
+__device__ __forceinline__ void mma_bf16_m16n8k16(const uint32_t a[4], const uint32_t b[2],
+                                                  float d[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.0f),
+        "f"(0.0f), "f"(0.0f), "f"(0.0f));
+}
+
+// K2's bf16 score on the tensor cores: the function of score_shared with
+// bf16 operands.  Each warp takes 32 particles at a time, four tiles of 8: lane l
+// builds phi of particle l (bf16) and the B fragments of the four tiles
+// come from it by shuffles.  The warp then runs over the rows of s_w (bf16
+// values held in float32) 16 points at a time (A = 16 points x the 15
+// coefficients and slot 15's 0, exactly k16), one A fragment feeding four
+// mma.sync.m16n8k16, one per tile; the clamp, the exp and the point sum run
+// on the accumulator fragments, each lane summing its 2 particles of each
+// tile over its rows, then a butterfly over the 8 lanes that share them.
+// Rows past `rows` in the last block score 0.  on_score(j, summed scores)
+// for each particle j < p, from a lane of the warp that owns j.
+template <int kThreads, int kMode, class OnScore>
+__device__ __forceinline__ void score_mma(const float* s_pos, int p, const float* bind,
+                                          const float* s_w, int rows, OnScore on_score) {
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kTiles = 4;  // tiles of 8 particles per warp step
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // A's rows g, g + 8; B's column (particle) g of a tile
+  const int c = lane & 3;   // A's and B's k pairs 2c, 2c + 8; D's columns 2c, 2c + 1
+  for (int base = (threadIdx.x >> 5) * 32; base < p; base += kWarps * 32) {
+    // phi of particle base + lane, as 8 bf16 pairs (k 2m, 2m + 1).
+    float pose[3] = {0.0f, 0.0f, 0.0f};
+    if (base + lane < p) {
+      pose[0] = s_pos[base + lane];
+      pose[1] = s_pos[p + base + lane];
+      pose[2] = s_pos[2 * p + base + lane];
+    }
+    float phi[16];
+    features<true>(pose, bind, phi);
+    uint32_t q[8];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) q[m] = pack_bf16x2(phi[2 * m], phi[2 * m + 1]);
+    // B of tile t at this lane: pairs c and c + 4 of particle 8t + g.
+    uint32_t b[kTiles][2];
+#pragma unroll
+    for (int t = 0; t < kTiles; ++t) {
+      b[t][0] = b[t][1] = 0u;
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const uint32_t v = __shfl_sync(0xffffffffu, q[m], 8 * t + g);
+        if (m == c) b[t][0] = v;
+        if (m == c + 4) b[t][1] = v;
+      }
+    }
+    float acc[kTiles][2];
+#pragma unroll
+    for (int t = 0; t < kTiles; ++t) acc[t][0] = acc[t][1] = 0.0f;
+    for (int i0 = 0; i0 < rows; i0 += 16) {
+      const bool v0 = i0 + g < rows;
+      const bool v1 = i0 + g + 8 < rows;
+      const float* w0 = s_w + (size_t)(v0 ? i0 + g : 0) * kWRow + 2 * c;
+      const float* w1 = s_w + (size_t)(v1 ? i0 + g + 8 : 0) * kWRow + 2 * c;
+      const float2 x0 = *reinterpret_cast<const float2*>(w0);
+      const float2 x1 = *reinterpret_cast<const float2*>(w1);
+      const float2 x2 = *reinterpret_cast<const float2*>(w0 + 8);
+      const float2 x3 = *reinterpret_cast<const float2*>(w1 + 8);
+      const uint32_t a[4] = {pack_bf16x2(x0.x, x0.y), pack_bf16x2(x1.x, x1.y),
+                             pack_bf16x2(x2.x, x2.y), pack_bf16x2(x3.x, x3.y)};
+#pragma unroll
+      for (int t = 0; t < kTiles; ++t) {
+        float d[4];
+        mma_bf16_m16n8k16(a, b[t], d);
+        acc[t][0] += v0 ? score_of<kMode>(d[0]) : 0.0f;
+        acc[t][1] += v0 ? score_of<kMode>(d[1]) : 0.0f;
+        acc[t][0] += v1 ? score_of<kMode>(d[2]) : 0.0f;
+        acc[t][1] += v1 ? score_of<kMode>(d[3]) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kTiles; ++t) {
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        acc[t][0] += __shfl_xor_sync(0xffffffffu, acc[t][0], off);
+        acc[t][1] += __shfl_xor_sync(0xffffffffu, acc[t][1], off);
+      }
+      const int j0 = base + 8 * t + 2 * c;
+      if (g == 0 && j0 < p) on_score(j0, acc[t][0]);
+      if (g == 0 && j0 + 1 < p) on_score(j0 + 1, acc[t][1]);
     }
   }
 }
 
 // First-argmin of the block's particle values c (jnp.min's rule: NaN if any
-// is NaN); the winner's row of `rows` goes to cand[0..3), zeros when the
-// minimum is NaN (no particle equals it).  Returns the minimum.  All threads
-// must call it; ends synchronised.
+// is NaN), this thread's particle q being j = q * stride + base; the
+// winner's row of `rows` goes to cand[0..3), zeros when the minimum is NaN
+// (no particle equals it).  Several threads may hold the same particle (the
+// same value and row).  Returns the minimum.  All threads must call it;
+// ends synchronised.
 template <int kThreads, int kPPT>
 __device__ __forceinline__ float select_particle(const float c[kPPT], const float (*rows)[3],
-                                                 int p, ArgminScratch<kThreads>& red,
-                                                 float* cand) {
-  const int tid = threadIdx.x;
+                                                 int p, int stride, int base,
+                                                 ArgminScratch<kThreads>& red, float* cand) {
   float bv = INFINITY;
   int bi = 0x7fffffff;
   int nan = 0;
 #pragma unroll
   for (int q = 0; q < kPPT; ++q) {
-    const int j = q * kThreads + tid;
+    const int j = q * stride + base;
     if (j < p) {
       if (isnan(c[q])) {
         nan = 1;
@@ -453,10 +636,10 @@ __device__ __forceinline__ float select_particle(const float c[kPPT], const floa
   float mv;
   int mi;
   block_argmin_merge<kThreads>(bv, bi, nan, &mv, &mi, red);
-  if (tid == 0 && isnan(mv)) cand[0] = cand[1] = cand[2] = 0.0f;
+  if (threadIdx.x == 0 && isnan(mv)) cand[0] = cand[1] = cand[2] = 0.0f;
 #pragma unroll
   for (int q = 0; q < kPPT; ++q) {
-    if (!isnan(mv) && q * kThreads + tid == mi) {
+    if (!isnan(mv) && q * stride + base == mi) {
       cand[0] = rows[q][0];
       cand[1] = rows[q][1];
       cand[2] = rows[q][2];
@@ -464,6 +647,98 @@ __device__ __forceinline__ float select_particle(const float c[kPPT], const floa
   }
   __syncthreads();
   return mv;
+}
+
+// ---- One solve per thread-block cluster (rollout_local.cu, rollout.cu).
+//
+// A solve runs on the C CTAs of one cluster; CTA `rank` owns the points
+// [rank * S, min((rank + 1) * S, N)), S = ceil(N / C), and every CTA runs
+// the whole PSO scaffolding (the same draws, update and bookkeeping).  Each
+// evaluation a CTA writes its partial score of every particle into its
+// shared part[P + 1]; after a cluster barrier, cluster_total adds the C
+// partials of particle j in rank order 0 .. C - 1, so every CTA makes the
+// same float32 additions, gets the same bits and takes the same decisions.
+
+constexpr int kMaxCluster = 8;  // the portable maximum
+
+__device__ __forceinline__ float cluster_total(float* part, int j, int nranks) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  float t = cluster.map_shared_rank(part, 0)[j];
+  for (int r = 1; r < nranks; ++r) t += cluster.map_shared_rank(part, r)[j];
+  return t;
+}
+
+// The first point and the number of points of `rank`'s slice.
+__device__ __forceinline__ void point_slice(int n, int nranks, int rank, int* i0, int* cnt) {
+  const int s = (n + nranks - 1) / nranks;
+  *i0 = rank * s;
+  const int left = n - *i0;
+  *cnt = left < 0 ? 0 : (left < s ? left : s);
+}
+
+// A launch configuration of `blocks` CTAs in clusters of `cluster` (a
+// divisor of blocks); attr holds the cluster dimension.
+inline cudaLaunchConfig_t cluster_config(int blocks, int threads, int cluster, size_t smem,
+                                         cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Raises kernel's dynamic shared memory limit on the current device to at
+// least `smem`, calling cudaFuncSetAttribute only when the limit it set
+// last for that kernel and device is lower, so a launch of a shape seen
+// before costs no attribute call.
+inline cudaError_t reserve_smem(const void* kernel, size_t smem) {
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, size_t> reserved;
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t& have = reserved[{device, kernel}];
+  if (smem <= have) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) have = smem;
+  return err;
+}
+
+// Launches kernel on a grid of `blocks` CTAs in clusters of `cluster`
+// with `smem` bytes of dynamic shared memory.  Returns the first CUDA error
+// (reserve_smem, the launch), or 0.  A refused cluster launch is returned,
+// never retried at another size.
+template <typename... KArgs, typename... Args>
+int launch_cluster(void (*kernel)(KArgs...), int blocks, int threads, int cluster, size_t smem,
+                   cudaStream_t stream, Args... args) {
+  cudaError_t err = reserve_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(blocks, threads, cluster, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The most clusters of `cluster` CTAs of kernel the device can hold at once
+// (cudaOccupancyMaxActiveClusters), into *out.  Returns the CUDA error, or 0.
+template <typename... KArgs>
+int max_active_clusters(void (*kernel)(KArgs...), int threads, int cluster, size_t smem,
+                        int* out) {
+  cudaError_t err = reserve_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(cluster, threads, cluster, smem, nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(out, (const void*)kernel, &cfg);
 }
 
 }  // namespace ndt

@@ -21,16 +21,17 @@
 // Output [B, 8, 128], every lane of a row equal: rows 0-2 the global best,
 // rows 3-7 its cost (the early-return stages their own rows).
 //
-// One thread block runs one solve, as K2's kernel does, and the stages
-// 1, 2 and 3 at K2's batch shape split K2's time into the draws and the
-// update, the bind, and the score.  The particles are spread over the
-// block's 512 threads, ceil(P / 512) in each thread's registers; the
-// 1 + 3 P * (1 + iterations) Threefry counters are those of
-// pso_common.cuh's init_uniforms and step_uniforms (the TPU kernel's
+// One thread block runs one solve, as K2's kernel does on a cluster of
+// C = 1, and the stages 1, 2 and 3 at K2's batch shape split K2's time into
+// the draws and the update, the bind, and the score.  The particle state
+// lies in shared memory as K2's does ([10, P], thread j % 512 owning
+// particle j); the 1 + 3 P * (1 + iterations) Threefry counters are those
+// of pso_common.cuh's init_uniforms and step_uniforms (the TPU kernel's
 // tf(3 + 3j + k) and tf(3 + 3P + 3P it + 3j + k)); the seed's pose draws
 // counter = row with amplitude 0.01.  The bind, the score and the
 // first-argmin merge are K2's own device code (pso_common.cuh: bind_point,
-// quad_row, score_particles, select_particle), so stage 3's loop is K2's:
+// quad_row, score_shared over score_tile, block_argmin), so stage 3's loop
+// is K2's:
 // each point's stencil cell is a direct load (the TPU kernel's one-hot
 // select only ever added zeros to it), points outside the stencil or the
 // frame score 0, and a NaN minimum selects no particle (jnp.min's rule).
@@ -68,18 +69,18 @@ struct Params {
   int pop;
   int iters;
   int stage;
-  // K2's scoring switches (rollout.cu), kernel parameters there as here and
-  // held at float32 operands and exp, so that stage 3's score loop is
-  // compiled as K2's is.
-  int bf16;
-  int exp_mode;
 };
+
+// K2's exp mode (rollout.cu), a template parameter there, held at exp with
+// float32 operands: stage 3's score loop is K2's score_shared, instantiated
+// as K2's rollout mode instantiates it.
+constexpr int kMode = kExp;
 
 __device__ __forceinline__ float sq3(const float* pose) {
   return pose[0] * pose[0] + pose[1] * pose[1] + pose[2] * pose[2];
 }
 
-template <int kPPT>
+template <int kCost>
 __global__ void __launch_bounds__(kThreads)
 bisect_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
               const float* __restrict__ guesses,   // [B, 3]
@@ -99,7 +100,7 @@ bisect_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
 
   const bool const_keys = stage == 10 || stage == 12 || stage >= 20;
   const bool const_guess = stage == 10 || stage == 11 || stage >= 20;
-  const int cost_kind = (stage < 2 || stage >= 10) ? kTrivial : (stage == 2 ? kMaskSum : kQuad);
+  constexpr int cost_kind = kCost;
   const uint32_t k0 = const_keys ? 12345u : keys[2 * b];
   const uint32_t k1 = const_keys ? 67890u : keys[2 * b + 1];
   float guess[3], dev[3];
@@ -109,11 +110,20 @@ bisect_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
     dev[k] = const_guess ? 0.2f : devs[3 * b + k];
   }
 
+  // Shared memory: the w rows [N, kWRow], then K2's particle state
+  // [10, P] (component k of particle j at k * P + j: position, velocity,
+  // personal best, its cost) and the evaluation's costs [P].  Particle j's
+  // state is written and read by thread j % kThreads only, up to the
+  // argmin merges.
   extern __shared__ float4 smem4[];
-  float* s_w = reinterpret_cast<float*>(smem4);  // [N, kWRow]
+  float* s_w = reinterpret_cast<float*>(smem4);
+  float* s_pos = s_w + (size_t)n * kWRow;
+  float* s_vel = s_pos + 3 * (size_t)p;
+  float* s_pb = s_vel + 3 * (size_t)p;
+  float* s_pbc = s_pb + 3 * (size_t)p;
+  float* s_cost = s_pbc + p;
   __shared__ ArgminScratch<kThreads> red;
   __shared__ float s_sum[kThreads / 32];
-  __shared__ float s_cand[3];
   __shared__ float s_gbest[3];
   __shared__ float s_gcost;
 
@@ -141,9 +151,7 @@ bisect_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       float part = 0.0f;
-#pragma unroll
-      for (int q = 0; q < kPPT; ++q)
-        if (q * kThreads + tid < p) part += g8[r];
+      for (int j = tid; j < p; j += kThreads) part += g8[r];
       v[r] = block_sum<kThreads>(part, s_sum);
     }
     write_rows(v);
@@ -164,7 +172,7 @@ bisect_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
       if (cost_kind == kMaskSum)
         msum += pt.mask;
       else
-        quad_row(pt, bind, n, prm.bf16, s_w + (size_t)i * kWRow);
+        quad_row<false>(pt, bind, n, s_w + (size_t)i * kWRow);
     }
     float total = 0.0f;
     if (cost_kind == kMaskSum) total = block_sum<kThreads>(msum, s_sum);
@@ -172,20 +180,17 @@ bisect_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
     return total;
   };
 
-  float pos[kPPT][3], vel[kPPT][3], pb[kPPT][3], pbc[kPPT];
-
-  // Cost of each of this thread's particles at the binding `bind`
-  // (msum: the bind's mask sum).
-  auto score_own = [&](const float* bind, float msum, float cost[kPPT]) {
+  // Cost of every particle at the binding `bind` into s_cost (msum: the
+  // bind's mask sum); the quadratic form through K2's score_shared.
+  auto score_all = [&](const float* bind, float msum) {
     if (cost_kind == kQuad) {
-      score_particles<kThreads, kPPT>(pos, p, bind, s_w, n, prm.bf16, prm.exp_mode, cost);
+      score_shared<kThreads, kMode>(s_pos, p, bind, s_w, n,
+                                           [&](int j, float part) { s_cost[j] = -part; });
       return;
     }
-#pragma unroll
-    for (int q = 0; q < kPPT; ++q) {
-      cost[q] = 0.0f;
-      if (q * kThreads + tid < p)
-        cost[q] = cost_kind == kMaskSum ? -(msum + sq3(pos[q])) : -sq3(pos[q]);
+    for (int j = tid; j < p; j += kThreads) {
+      const float pose[3] = {s_pos[j], s_pos[p + j], s_pos[2 * p + j]};
+      s_cost[j] = cost_kind == kMaskSum ? -(msum + sq3(pose)) : -sq3(pose);
     }
   };
 
@@ -194,8 +199,8 @@ bisect_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
   float g_cost;
   if (cost_kind == kQuad) {
     float g_phi[16];
-    features(g8, guess, prm.bf16, g_phi);
-    g_cost = -block_sum<kThreads>(score_rows(s_w, tid, n, kThreads, g_phi, prm.exp_mode), s_sum);
+    features<false>(g8, guess, g_phi);
+    g_cost = -block_sum<kThreads>(score_rows<kMode>(s_w, tid, n, kThreads, g_phi), s_sum);
   } else if (cost_kind == kMaskSum) {
     g_cost = -(msum0 + sq3(g8));
   } else {
@@ -209,21 +214,25 @@ bisect_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
   }
 
   // --- the population.
-#pragma unroll
-  for (int q = 0; q < kPPT; ++q) {
-    const int j = q * kThreads + tid;
-    float u[3] = {0.0f, 0.0f, 0.0f};
-    if (j < p) init_uniforms(0, k0, k1, j, p, u);
+  for (int j = tid; j < p; j += kThreads) {
+    float u[3];
+    init_uniforms<false>(k0, k1, j, p, u);
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      pos[q][k] = guess[k] + (2.0f * u[k] - 1.0f) * dev[k];
-      vel[q][k] = 0.0f;
-      pb[q][k] = pos[q][k];
+      const float x = guess[k] + (2.0f * u[k] - 1.0f) * dev[k];
+      s_pos[k * p + j] = x;
+      s_vel[k * p + j] = 0.0f;
+      s_pb[k * p + j] = x;
     }
   }
-  score_own(guess, msum0, pbc);
-  const float bc = select_particle<kThreads, kPPT>(pbc, pos, p, red, s_cand);
-  const float bp[3] = {s_cand[0], s_cand[1], s_cand[2]};
+  score_all(guess, msum0);
+  float bc;
+  int bi;
+  block_argmin<kThreads>(s_cost, p, &bc, &bi, red);
+  // The first-argmin particle's pose, zeros when the minimum is NaN.
+  float bp[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) bp[k] = isnan(bc) ? 0.0f : s_pos[k * p + bi];
   if (stage == 22) {  // rows 3-7 of the population are 0
     const float rows[8] = {bp[0] + bc, bp[1] + bc, bp[2] + bc, 0.0f + bc,
                            0.0f + bc,  0.0f + bc,  0.0f + bc,  0.0f + bc};
@@ -245,6 +254,7 @@ bisect_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
 
   // --- the PSO loop (stages 1-9).
   if (stage >= 1 && stage < 10) {
+    for (int j = tid; j < p; j += kThreads) s_pbc[j] = s_cost[j];
     if (tid == 0) {
       s_gbest[0] = gbest[0];
       s_gbest[1] = gbest[1];
@@ -254,37 +264,35 @@ bisect_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
     __syncthreads();
     for (int it = 0; it < prm.iters; ++it) {
       const float gb[3] = {s_gbest[0], s_gbest[1], s_gbest[2]};
-#pragma unroll
-      for (int q = 0; q < kPPT; ++q) {
-        const int j = q * kThreads + tid;
-        if (j >= p) continue;
+      for (int j = tid; j < p; j += kThreads) {
         float r1[3], r2[3];
-        step_uniforms(0, k0, k1, j, p, it, r1, r2);
+        step_uniforms<false>(k0, k1, j, p, it, r1, r2);
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
-          const float x = pos[q][k];
-          const float v = kW * vel[q][k] + kC * r1[k] * (pb[q][k] - x) + kC * r2[k] * (gb[k] - x);
-          vel[q][k] = v;
-          pos[q][k] = x + v;
+          const float x = s_pos[k * p + j];
+          const float v = kW * s_vel[k * p + j] + kC * r1[k] * (s_pb[k * p + j] - x) +
+                          kC * r2[k] * (gb[k] - x);
+          s_vel[k * p + j] = v;
+          s_pos[k * p + j] = x + v;
         }
       }
       const float msum = bind_at(gb);
-      float cost[kPPT];
-      score_own(gb, msum, cost);
-#pragma unroll
-      for (int q = 0; q < kPPT; ++q) {
-        if (q * kThreads + tid < p && cost[q] < pbc[q]) {
-          pbc[q] = cost[q];
-          pb[q][0] = pos[q][0];
-          pb[q][1] = pos[q][1];
-          pb[q][2] = pos[q][2];
+      score_all(gb, msum);
+      for (int j = tid; j < p; j += kThreads) {
+        if (s_cost[j] < s_pbc[j]) {
+          s_pbc[j] = s_cost[j];
+          s_pb[j] = s_pos[j];
+          s_pb[p + j] = s_pos[p + j];
+          s_pb[2 * p + j] = s_pos[2 * p + j];
         }
       }
-      const float bci = select_particle<kThreads, kPPT>(pbc, pb, p, red, s_cand);
+      float bci;
+      int bii;
+      block_argmin<kThreads>(s_pbc, p, &bci, &bii, red);
       if (tid == 0 && bci < s_gcost) {
-        s_gbest[0] = s_cand[0];
-        s_gbest[1] = s_cand[1];
-        s_gbest[2] = s_cand[2];
+        s_gbest[0] = s_pb[bii];
+        s_gbest[1] = s_pb[p + bii];
+        s_gbest[2] = s_pb[2 * p + bii];
         s_gcost = bci;
       }
       __syncthreads();
@@ -298,28 +306,31 @@ bisect_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
   write_rows(rows);
 }
 
-template <int kPPT>
+// Each cost kind is its own instantiation, so stage 3's kernel is compiled
+// for the quadratic form alone, as K2's is.
+template <int kCost>
 int launch(const Params& prm, int batch, size_t smem, cudaStream_t stream, const void* keys,
            const void* guesses, const void* devs, const void* pts, const void* sten, void* out) {
-  cudaError_t err = cudaFuncSetAttribute(
-      bisect_kernel<kPPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(bisect_kernel<kCost>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  bisect_kernel<kPPT><<<batch, kThreads, smem, stream>>>(
+  bisect_kernel<kCost><<<batch, kThreads, smem, stream>>>(
       static_cast<const uint32_t*>(keys), static_cast<const float*>(guesses),
       static_cast<const float*>(devs), static_cast<const float*>(pts),
       static_cast<const float*>(sten), static_cast<float*>(out), prm);
   return (int)cudaGetLastError();
 }
 
+size_t smem_bytes(int n, int p) {
+  return sizeof(float) * (kWRow * (size_t)n + 11 * (size_t)p);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one launch needs (the w rows).
-size_t ndt_bisect_smem_bytes(int n_pts) { return sizeof(float) * kWRow * (size_t)n_pts; }
-
-// Largest population one launch takes (8 particles per thread).
-int ndt_bisect_max_population() { return 8 * kThreads; }
+// Dynamic shared memory one launch needs (the w rows, the particle state).
+size_t ndt_bisect_smem_bytes(int n_pts, int population) { return smem_bytes(n_pts, population); }
 
 // Runs `stage` of B solves on `stream`.  Returns cudaGetLastError() after
 // the launch.
@@ -328,15 +339,13 @@ int ndt_rollout_bisect(const void* keys, const void* guesses, const void* devs, 
                        int iterations, int stage, void* stream) {
   if (stage < 0 || stage > 27 || population < 1 || n_pts < 1 || iterations < 0)
     return (int)cudaErrorInvalidValue;
-  const Params prm{n_pts, population, iterations, stage, 0, kExp};
-  const size_t smem = ndt_bisect_smem_bytes(n_pts);
+  const Params prm{n_pts, population, iterations, stage};
+  const size_t smem = smem_bytes(n_pts, population);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int per_thread = (population + kThreads - 1) / kThreads;
-  if (per_thread <= 1) return launch<1>(prm, batch, smem, s, keys, guesses, devs, pts, sten, out);
-  if (per_thread <= 2) return launch<2>(prm, batch, smem, s, keys, guesses, devs, pts, sten, out);
-  if (per_thread <= 4) return launch<4>(prm, batch, smem, s, keys, guesses, devs, pts, sten, out);
-  if (per_thread <= 8) return launch<8>(prm, batch, smem, s, keys, guesses, devs, pts, sten, out);
-  return (int)cudaErrorInvalidValue;
+  if (stage < 2 || stage >= 10)
+    return launch<kTrivial>(prm, batch, smem, s, keys, guesses, devs, pts, sten, out);
+  if (stage == 2) return launch<kMaskSum>(prm, batch, smem, s, keys, guesses, devs, pts, sten, out);
+  return launch<kQuad>(prm, batch, smem, s, keys, guesses, devs, pts, sten, out);
 }
 
 }  // extern "C"

@@ -16,6 +16,7 @@ import ctypes
 import dataclasses
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -107,6 +108,56 @@ def u32_words(keys, device):
     """Key words [B, 2] as the kernels take them: u32 words carried as their
     int32 bit patterns, contiguous on ``device``."""
     return (keys.to(device).to(torch.int64) & 0xFFFFFFFF).to(torch.int32).contiguous()
+
+
+# Cluster sizes a whole-solve kernel (K1, K2) may run one solve on: powers
+# of two up to the portable maximum (csrc/pso_common.cuh: kMaxCluster).
+CLUSTER_SIZES = (1, 2, 4, 8)
+# Static shared memory a whole-solve CTA keeps beside its dynamic part
+# (argmin and sum scratch, the global best), an upper bound.
+STATIC_SMEM = 1024
+
+
+def choose_cluster(batch: int, smem_bytes: Callable[[int], int], smem_limit: int,
+                   sm_count: int) -> int:
+    """The cluster size C a whole-solve kernel runs each of ``batch`` solves
+    on: the smallest of :data:`CLUSTER_SIZES` whose CTA fits the shared
+    memory (``smem_bytes(C)`` dynamic bytes plus :data:`STATIC_SMEM` within
+    ``smem_limit``) and that gives small batches enough CTAs to cover the
+    SMs, ``C >= min(8, next_pow2(ceil(sm_count / batch)))``.  Raises if no
+    size fits."""
+    spread = min(CLUSTER_SIZES[-1], 1 << (math.ceil(sm_count / batch) - 1).bit_length())
+    for c in CLUSTER_SIZES:
+        if c >= spread and smem_bytes(c) + STATIC_SMEM <= smem_limit:
+            return c
+    raise ValueError(
+        f"no cluster size in {CLUSTER_SIZES} fits: a CTA needs "
+        f"{smem_bytes(CLUSTER_SIZES[-1]) + STATIC_SMEM} B of shared memory at C="
+        f"{CLUSTER_SIZES[-1]}; the device allows {smem_limit} B"
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(index: int):
+    """(shared memory per block, opt-in; SM count) of CUDA device ``index``,
+    read once."""
+    props = torch.cuda.get_device_properties(index)
+    return props.shared_memory_per_block_optin, props.multi_processor_count
+
+
+def device_cluster(batch: int, smem_bytes: Callable[[int], int], device, cluster=None) -> int:
+    """:func:`choose_cluster` on ``device``'s shared memory per block and SM
+    count, or the forced ``cluster`` (tests), checked the same way."""
+    index = torch.device(device).index
+    limit, sm_count = device_limits(torch.cuda.current_device() if index is None else index)
+    if cluster is None:
+        return choose_cluster(batch, smem_bytes, limit, sm_count)
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster {cluster} is not one of {CLUSTER_SIZES}")
+    if smem_bytes(cluster) + STATIC_SMEM > limit:
+        raise ValueError(f"cluster {cluster}: a CTA needs {smem_bytes(cluster)} B of shared "
+                         f"memory; the device allows {limit} B")
+    return cluster
 
 
 def check_launch(cdll: ctypes.CDLL, err: int, name: str) -> None:

@@ -5,13 +5,17 @@ Port of ``pack_rollout_inputs`` / ``pso_rollout`` / ``_rollout_kernel`` of
 ``ndtpso_slam_tpu/ops/pallas_rollout.py``, every branch: ``score_dtype``
 f32 | bf16, ``rng_mode`` threefry | native (turbo: Philox, see
 ``ops/rng.py``), ``exp_mode`` exp | exp2 | approx, and the early exit.  The
-kernel runs one whole solve per thread block (see the note at the top of the
-``.cu`` file).
+kernel runs one whole solve per thread-block cluster of C CTAs, each CTA
+binding and scoring its slice of the points (see the note at the top of the
+``.cu`` file); :func:`smem_bytes` is one CTA's shared memory and
+``_build.choose_cluster`` picks C from it.  :func:`packed_frozen_cost` with
+``cluster=C`` sums the points in the kernel's order.
 
 :func:`pso_rollout` takes the plain version for tensors on the CPU and
 launches the kernel for tensors on a CUDA device; it never falls back from
-one to the other.  ``pso_rollout.LAUNCHES`` counts kernel launches.  The
-library is built by ``ops/_build.py``.  :func:`solve_rollout_mode` maps a
+one to the other.  ``pso_rollout.LAUNCHES`` counts kernel launches and
+``pso_rollout.LAST_CLUSTER`` is the C of the last launch.  The library is
+built by ``ops/_build.py``.  :func:`solve_rollout_mode` maps a
 ``rollout*`` cost mode to its kernel call, for batch scan matching and the
 SLAM align alike.
 """
@@ -33,6 +37,7 @@ from ndtpso_slam_tpu_torch.ops.rollout_local import (
     default_exp_mode,
     pack_rollout_local_inputs,
     pso_rollout_local,
+    rank_sliced_sum,
 )
 
 EXP_MODES = ("exp", "exp2", "approx")
@@ -44,15 +49,31 @@ _APPROX_BIAS = 127 * (1 << 23) - 366393
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ndt_rollout.argtypes = [vp] * 6 + [i] * 9 + [f] * 9 + [vp]
+    lib.ndt_rollout.argtypes = [vp] * 6 + [i] * 10 + [f] * 9 + [vp]
     lib.ndt_rollout.restype = i
-    lib.ndt_rollout_smem_bytes.argtypes = [i]
+    lib.ndt_rollout_smem_bytes.argtypes = [i, i, i]
     lib.ndt_rollout_smem_bytes.restype = ctypes.c_size_t
-    lib.ndt_rollout_max_population.argtypes = []
-    lib.ndt_rollout_max_population.restype = i
+    lib.ndt_rollout_max_active_clusters.argtypes = [i] * 3 + [ctypes.POINTER(i)]
+    lib.ndt_rollout_max_active_clusters.restype = i
 
 
 LIB = _build.KernelLib("rollout", "rollout.cu", _bind)
+
+
+def smem_bytes(n_pts: int, population: int, cluster: int) -> int:
+    """Dynamic shared memory of one CTA of the kernel (csrc/rollout.cu:
+    smem_bytes): the w rows of its points [S, 16], S = ceil(N / cluster),
+    the particle state [10, P] and the partial costs [P + 1]."""
+    return 4 * (16 * -(-n_pts // cluster) + 11 * population + 1)
+
+
+def max_population(n_pts: int, smem_limit: int) -> int:
+    """The most particles one launch takes on N points, with ``smem_limit``
+    bytes of shared memory per CTA: every CTA of a cluster holds the whole
+    particle state, so only w's share shrinks with C, and C=8 is the most
+    room there is (5,189 particles at N=384 on an H100; 4,701 at C=1)."""
+    fixed = smem_bytes(n_pts, 0, _build.CLUSTER_SIZES[-1]) + _build.STATIC_SMEM
+    return max(0, (smem_limit - fixed) // (4 * 11))
 
 
 def pack_rollout_inputs(nbr: cost_mod.NeighborhoodBind, points: torch.Tensor):
@@ -181,31 +202,35 @@ def packed_frozen_cost(
     radius: int = cost_mod.DEFAULT_STENCIL_RADIUS,
     score_dtype: str = "f32",
     exp_mode: str = "exp",
+    cluster: int = 1,
 ) -> torch.Tensor:  # [B, P]
     """The cost the kernel evaluates: rebind at ``binds``, z = φ·wᵀ (with
     bf16-rounded operands for ``score_dtype="bf16"``), then the sum of
-    :func:`score_z` over all points."""
+    :func:`score_z` over all points; with ``cluster`` > 1 in the kernel's
+    order on that many CTAs (``rank_sliced_sum``)."""
     w = packed_bound_w(binds, sten, pts, map_cfg, radius)
     phi = cost_mod.pose_features(poses, binds)  # [B, P, 15]
     if score_dtype == "bf16":
         w, phi = _bf16(w), _bf16(phi)
     z = phi @ w.transpose(-1, -2)  # [B, P, N]
+    if cluster > 1:
+        return -rank_sliced_sum(score_z(z, exp_mode), cluster)
     return -torch.sum(score_z(z, exp_mode), dim=-1)
 
 
 def pso_rollout_reference(
     keys, guesses, deviations, sten, pts, cfg: PSOConfig, map_cfg: MapConfig,
     radius: int = cost_mod.DEFAULT_STENCIL_RADIUS, score_dtype: str = "f32",
-    rng_mode: str = "threefry", exp_mode=None, early_exit: int = 0,
+    rng_mode: str = "threefry", exp_mode=None, early_exit: int = 0, cluster: int = 1,
 ):
     """Plain PyTorch version of the kernel: ``pso_solve_batch`` over
-    :func:`packed_frozen_cost`.  Same arguments and results as
-    :func:`pso_rollout`."""
+    :func:`packed_frozen_cost`, its point sums in the order of a cluster of
+    ``cluster`` CTAs.  Same arguments and results as :func:`pso_rollout`."""
     exp_mode = exp_mode or default_exp_mode(rng_mode)
     res = pso_solve_batch(
         keys, guesses.to(torch.float32), deviations.to(torch.float32),
         lambda poses, binds: packed_frozen_cost(
-            poses, binds, sten, pts, map_cfg, radius, score_dtype, exp_mode
+            poses, binds, sten, pts, map_cfg, radius, score_dtype, exp_mode, cluster
         ),
         cfg, rng_mode=rng_mode, early_exit=early_exit,
     )
@@ -213,7 +238,7 @@ def pso_rollout_reference(
 
 
 def _launch(keys, guesses, deviations, sten, pts, cfg, map_cfg, radius, score_dtype,
-            rng_mode, exp_mode, early_exit):
+            rng_mode, exp_mode, early_exit, cluster):
     dev = sten.device
     b, k2, rows, n = sten.shape
     for name, t in (("guesses", guesses), ("deviations", deviations), ("pts", pts)):
@@ -226,15 +251,13 @@ def _launch(keys, guesses, deviations, sten, pts, cfg, map_cfg, radius, score_dt
     if guesses.shape != (b, 3) or deviations.shape != (b, 3) or keys.shape != (b, 2):
         raise ValueError("keys, guesses and deviations must be [B, 2], [B, 3], [B, 3]")
     lib = _build.load(LIB)
-    if cfg.population > lib.ndt_rollout_max_population():
+    most = max_population(n, _build.device_limits(dev.index)[0])
+    if cfg.population > most:
         raise ValueError(
-            f"population {cfg.population} > {lib.ndt_rollout_max_population()}, "
-            "the most one rollout launch takes"
+            f"population {cfg.population} > {most}, the most one rollout launch takes at "
+            f"N={n}: each CTA keeps the whole particle state in shared memory"
         )
-    smem = lib.ndt_rollout_smem_bytes(n)
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"N={n} needs {smem} B of shared memory; the device allows {limit} B")
+    c = _build.device_cluster(b, lambda c: smem_bytes(n, cfg.population, c), dev, cluster)
     sten, pts = sten.contiguous(), pts.contiguous()
     guesses = guesses.to(torch.float32).contiguous()
     deviations = deviations.to(torch.float32).contiguous()
@@ -247,13 +270,14 @@ def _launch(keys, guesses, deviations, sten, pts, cfg, map_cfg, radius, score_dt
             keys32.data_ptr(), guesses.data_ptr(), deviations.data_ptr(),
             sten.data_ptr(), pts.data_ptr(), out.data_ptr(),
             b, n, cfg.population, cfg.iterations, radius, early_exit,
-            int(rng_mode == "native"), int(score_dtype == "bf16"), EXP_MODES.index(exp_mode),
+            int(rng_mode == "native"), int(score_dtype == "bf16"), EXP_MODES.index(exp_mode), c,
             map_cfg.half_size_m, map_cfg.cell_side_m,
             cfg.w, cfg.c1, cfg.c2, cfg.w_damping, zd[0], zd[1], zd[2],
             stream,
         )
     _build.check_launch(lib, err, "rollout")
     pso_rollout.LAUNCHES += 1
+    pso_rollout.LAST_CLUSTER = c
     return out[:, 0:3], out[:, 3]
 
 
@@ -270,6 +294,7 @@ def pso_rollout(
     rng_mode: str = "threefry",
     exp_mode=None,
     early_exit: int = 0,
+    cluster=None,
 ):
     """B whole-solve PSO rollouts, correspondences frozen at the incumbent
     each iteration.  Returns (pose [B, 3], cost [B]).  CPU tensors run the
@@ -280,7 +305,11 @@ def pso_rollout(
     exp_mode: ``exp``, ``exp2`` or ``approx``; None takes the rng mode's
     default (``exp`` for Threefry, ``exp2`` for turbo).
     early_exit: stop a solve once its best has stalled this many iterations
-    (0 = the fixed budget)."""
+    (0 = the fixed budget).
+    cluster: CTAs per solve; None (every caller but the tests) lets
+    ``_build.choose_cluster`` pick it.  A size the device refuses raises.
+    On the CPU the plain version sums the points in that cluster's order
+    (one pass for None)."""
     exp_mode = exp_mode or default_exp_mode(rng_mode)
     for name, value, allowed in (("score_dtype", score_dtype, SCORE_DTYPES),
                                  ("rng_mode", rng_mode, RNG_MODES),
@@ -290,13 +319,14 @@ def pso_rollout(
     args = (keys, guesses, deviations, sten, pts, cfg, map_cfg, radius, score_dtype,
             rng_mode, exp_mode, early_exit)
     if sten.device.type == "cpu":
-        return pso_rollout_reference(*args)
+        return pso_rollout_reference(*args, cluster=cluster or 1)
     if sten.device.type != "cuda":
         raise ValueError(f"unsupported device {sten.device}")
-    return _launch(*args)
+    return _launch(*args, cluster)
 
 
 pso_rollout.LAUNCHES = 0
+pso_rollout.LAST_CLUSTER = None
 
 
 def solve_rollout_mode(

@@ -42,10 +42,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.ndt_rollout_bisect.argtypes = [vp] * 6 + [i] * 5 + [vp]
     lib.ndt_rollout_bisect.restype = i
-    lib.ndt_bisect_smem_bytes.argtypes = [i]
+    lib.ndt_bisect_smem_bytes.argtypes = [i, i]
     lib.ndt_bisect_smem_bytes.restype = ctypes.c_size_t
-    lib.ndt_bisect_max_population.argtypes = []
-    lib.ndt_bisect_max_population.restype = i
 
 
 LIB = _build.KernelLib("rollout_bisect", "rollout_bisect.cu", _bind)
@@ -171,13 +169,11 @@ def rollout_bisect(stage: int, keys, guesses, devs, pts, sten, population: int =
     if pts.dtype != torch.float32:
         raise TypeError("the kernel takes float32 pts and sten")
     lib = _build.load(LIB)
-    if population > lib.ndt_bisect_max_population():
-        raise ValueError(f"population {population} > {lib.ndt_bisect_max_population()}, "
-                         "the most one launch takes")
-    smem = lib.ndt_bisect_smem_bytes(n)
+    smem = lib.ndt_bisect_smem_bytes(n, population)
     limit = torch.cuda.get_device_properties(pts.device).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"N={n} needs {smem} B of shared memory; the device allows {limit} B")
+    if smem + _build.STATIC_SMEM > limit:
+        raise ValueError(f"N={n}, population {population} needs {smem} B of shared memory; "
+                         f"the device allows {limit} B")
     dev = pts.device
     pts, sten = pts.contiguous(), sten.contiguous()
     guesses = guesses.to(torch.float32).contiguous()

@@ -6,12 +6,19 @@ Port of ``pack_rollout_local_inputs`` / ``pso_rollout_local`` /
 Threefry branch with exact ``exp`` (``rollout_local``) and the turbo branch
 (``rng_mode="native"``: Philox draws, ``exp2`` scoring;
 ``rollout_local_turbo``), both with the early exit.  The kernel runs one
-whole solve per thread block (see the note at the top of the ``.cu`` file).
+whole solve per thread-block cluster of C CTAs, each CTA scoring its slice
+of the points from its slice of the stencil table in shared memory (see the
+note at the top of the ``.cu`` file); :func:`smem_bytes` is one CTA's shared
+memory and ``_build.choose_cluster`` picks C from it.  The kernel sums each
+cost over a CTA's points, then the CTAs' partials in rank order:
+:func:`packed_stencil_cost` with ``cluster=C`` is that order in plain
+PyTorch.
 
 :func:`pso_rollout_local` takes the plain version for tensors on the CPU and
 launches the kernel for tensors on a CUDA device; it never falls back from
-one to the other.  ``pso_rollout_local.LAUNCHES`` counts kernel launches.
-The library is built by ``ops/_build.py``.
+one to the other.  ``pso_rollout_local.LAUNCHES`` counts kernel launches
+and ``pso_rollout_local.LAST_CLUSTER`` is the C of the last launch.  The
+library is built by ``ops/_build.py``.
 """
 
 from __future__ import annotations
@@ -37,13 +44,40 @@ EXP_MODES = ("exp", "exp2")
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ndt_rollout_local.argtypes = [vp] * 6 + [i] * 8 + [f] * 9 + [vp]
+    lib.ndt_rollout_local.argtypes = [vp] * 6 + [i] * 9 + [f] * 9 + [vp]
     lib.ndt_rollout_local.restype = i
-    lib.ndt_rollout_local_smem_bytes.argtypes = [i, i]
+    lib.ndt_rollout_local_smem_bytes.argtypes = [i, i, i, i]
     lib.ndt_rollout_local_smem_bytes.restype = ctypes.c_size_t
+    lib.ndt_rollout_local_max_population.argtypes = []
+    lib.ndt_rollout_local_max_population.restype = i
+    lib.ndt_rollout_local_max_active_clusters.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+    lib.ndt_rollout_local_max_active_clusters.restype = i
 
 
 LIB = _build.KernelLib("rollout_local", "rollout_local.cu", _bind)
+
+
+def smem_bytes(n_pts: int, population: int, cluster: int,
+               radius: int = cost_mod.DEFAULT_STENCIL_RADIUS) -> int:
+    """Dynamic shared memory of one CTA of the kernel (csrc/rollout_local.cu:
+    smem_bytes): its slice of the stencil table [K2, S, 8] (each lane padded
+    by 4 floats) and point columns [5, S], S = ceil(N / cluster), and the
+    partial costs [P + 1]."""
+    s = -(-n_pts // cluster)
+    k2 = (2 * radius + 1) ** 2
+    return 4 * ((k2 * 8 + 5) * s + 4 * k2 + population + 1)
+
+
+def rank_sliced_sum(s: torch.Tensor, cluster: int) -> torch.Tensor:
+    """Sum over the last axis in the order of a cluster of ``cluster`` CTAs:
+    CTA r sums its slice [r·S, (r + 1)·S), S = ceil(N / cluster), and the
+    partials are added in rank order 0 .. cluster - 1."""
+    n = s.shape[-1]
+    step = -(-n // cluster)
+    total = s[..., 0:step].sum(dim=-1)
+    for r in range(1, cluster):
+        total = total + s[..., r * step:(r + 1) * step].sum(dim=-1)
+    return total
 
 
 def default_exp_mode(rng_mode: str) -> str:
@@ -95,10 +129,12 @@ def packed_stencil_cost(
     map_cfg: MapConfig,
     radius: int,
     exp_mode: str = "exp",
+    cluster: int = 1,
 ) -> torch.Tensor:  # [P]
     """``models/cost.py:stencil_exact_cost`` on the packed inputs: the cost
     the kernel evaluates for every particle, scored with ``exp`` or, in the
-    turbo branch, ``exp2``."""
+    turbo branch, ``exp2``; with ``cluster`` > 1 the points are summed in the
+    kernel's order on that many CTAs (:func:`rank_sliced_sum`)."""
     side = 2 * radius + 1
     q = transform_points(pts[:, 0:2], poses)  # [P, N, 2]
     jx, jy, inb = cell_coords(q, size_m=map_cfg.size_m, cell_side_m=map_cfg.cell_side_m)
@@ -113,17 +149,20 @@ def packed_stencil_cost(
     ok = in_st & (lane[..., 5] == 0.0) & inb & (pts[:, 4] != 0.0)[None, :]
     s = torch.exp2(quad * EXP2_SCALE) if exp_mode == "exp2" else torch.exp(-0.5 * quad)
     s = torch.where(ok, s, torch.zeros((), dtype=s.dtype, device=s.device))
+    if cluster > 1:
+        return -rank_sliced_sum(s, cluster)
     return -torch.sum(s, dim=-1)
 
 
 def pso_rollout_local_reference(
     keys, guesses, deviations, sten, pts, cfg: PSOConfig, map_cfg: MapConfig,
     radius: int = cost_mod.DEFAULT_STENCIL_RADIUS, early_exit: int = 0,
-    rng_mode: str = "threefry", exp_mode=None,
+    rng_mode: str = "threefry", exp_mode=None, cluster: int = 1,
 ):
     """Plain PyTorch version of the kernel: ``pso_solve`` over
     :func:`packed_stencil_cost`, one solve after another, with the draws of
-    ``rng_mode``.  Same arguments and results as :func:`pso_rollout_local`."""
+    ``rng_mode`` and the point sums in the order of a cluster of ``cluster``
+    CTAs.  Same arguments and results as :func:`pso_rollout_local`."""
     exp_mode = exp_mode or default_exp_mode(rng_mode)
     keys = keys.to(torch.int64).cpu()
     poses, costs = [], []
@@ -133,7 +172,7 @@ def pso_rollout_local_reference(
             guesses[b].to(torch.float32),
             deviations[b].to(torch.float32),
             lambda p, _bind, b=b: packed_stencil_cost(
-                p, sten[b], pts[b], map_cfg, radius, exp_mode
+                p, sten[b], pts[b], map_cfg, radius, exp_mode, cluster
             ),
             cfg,
             early_exit=early_exit,
@@ -145,7 +184,7 @@ def pso_rollout_local_reference(
 
 
 def _launch(keys, guesses, deviations, sten, pts, cfg, map_cfg, radius, early_exit,
-            rng_mode, exp_mode):
+            rng_mode, exp_mode, cluster):
     dev = sten.device
     b, k2, n, cols = sten.shape
     for name, t in (("guesses", guesses), ("deviations", deviations), ("pts", pts)):
@@ -158,13 +197,12 @@ def _launch(keys, guesses, deviations, sten, pts, cfg, map_cfg, radius, early_ex
     if guesses.shape != (b, 3) or deviations.shape != (b, 3) or keys.shape != (b, 2):
         raise ValueError("keys, guesses and deviations must be [B, 2], [B, 3], [B, 3]")
     lib = _build.load(LIB)
-    smem = lib.ndt_rollout_local_smem_bytes(n, cfg.population)
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if smem > limit:
+    if cfg.population > lib.ndt_rollout_local_max_population():
         raise ValueError(
-            f"N={n}, population={cfg.population} needs {smem} B of shared memory; "
-            f"the device allows {limit} B per block"
+            f"population {cfg.population} > {lib.ndt_rollout_local_max_population()}, "
+            "the most one rollout_local launch takes"
         )
+    c = _build.device_cluster(b, lambda c: smem_bytes(n, cfg.population, c, radius), dev, cluster)
     sten = sten.contiguous()
     if sten.data_ptr() % 16:
         raise ValueError("sten must be 16-byte aligned")
@@ -180,13 +218,14 @@ def _launch(keys, guesses, deviations, sten, pts, cfg, map_cfg, radius, early_ex
             keys32.data_ptr(), guesses.data_ptr(), deviations.data_ptr(),
             sten.data_ptr(), pts.data_ptr(), out.data_ptr(),
             b, n, cfg.population, cfg.iterations, radius, early_exit,
-            int(rng_mode == "native"), int(exp_mode == "exp2"),
+            int(rng_mode == "native"), int(exp_mode == "exp2"), c,
             map_cfg.half_size_m, map_cfg.cell_side_m,
             cfg.w, cfg.c1, cfg.c2, cfg.w_damping, zd[0], zd[1], zd[2],
             stream,
         )
     _build.check_launch(lib, err, "rollout_local")
     pso_rollout_local.LAUNCHES += 1
+    pso_rollout_local.LAST_CLUSTER = c
     return out[:, 0:3], out[:, 3]
 
 
@@ -202,13 +241,18 @@ def pso_rollout_local(
     early_exit: int = 0,
     rng_mode: str = "threefry",
     exp_mode=None,
+    cluster=None,
 ):
     """B whole-solve PSO rollouts with per-particle exact stencil rebinding.
     Returns (pose [B, 3], cost [B]).  CPU tensors run the plain version; CUDA
     tensors launch the kernel.
 
     rng_mode: ``threefry`` (the parity stream) or ``native`` (turbo: Philox).
-    exp_mode: ``exp`` or ``exp2``; None takes the rng mode's default."""
+    exp_mode: ``exp`` or ``exp2``; None takes the rng mode's default.
+    cluster: CTAs per solve; None (every caller but the tests) lets
+    ``_build.choose_cluster`` pick it.  A size the device refuses raises.
+    On the CPU the plain version sums the points in that cluster's order
+    (one pass for None)."""
     if rng_mode not in ("threefry", "native"):
         raise ValueError(f"unknown rng_mode {rng_mode!r}; expected 'threefry' | 'native'")
     exp_mode = exp_mode or default_exp_mode(rng_mode)
@@ -217,12 +261,13 @@ def pso_rollout_local(
     if sten.device.type == "cpu":
         return pso_rollout_local_reference(
             keys, guesses, deviations, sten, pts, cfg, map_cfg, radius, early_exit,
-            rng_mode, exp_mode,
+            rng_mode, exp_mode, cluster or 1,
         )
     if sten.device.type != "cuda":
         raise ValueError(f"unsupported device {sten.device}")
     return _launch(keys, guesses, deviations, sten, pts, cfg, map_cfg, radius, early_exit,
-                   rng_mode, exp_mode)
+                   rng_mode, exp_mode, cluster)
 
 
 pso_rollout_local.LAUNCHES = 0
+pso_rollout_local.LAST_CLUSTER = None

@@ -17,11 +17,19 @@ tests/test_parallel.py):
 * turbo modes (Philox draws, not the TPU's hardware stream): accuracy gates
   only, as the JAX package's turbo tests.
 
-The kernels themselves run only on a GPU: the ``gpu``-marked tests compare
-each with its plain version there and skip here.  The GPU machine has no
+K2 runs one solve per thread-block cluster of C CTAs and sums each cost
+over a CTA's points, then over the CTAs in rank order; the chooser of C and
+that sum order (``packed_frozen_cost(cluster=C)``), and the most particles
+one K2 launch takes, are held here.  The kernels themselves run only on a
+GPU: the ``gpu``-marked tests compare each with its plain version there,
+summed in the order of the kernel's cluster (K2 and K1's turbo branch at
+every C, on ragged point counts, small batches and the early exit), and
+skip here.  The GPU machine has no
 JAX, so run them there with
 ``python -m pytest --noconftest -m gpu tests/test_torch_batch.py``.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -32,6 +40,7 @@ from ndtpso_slam_tpu_torch.models import cost as tcost
 from ndtpso_slam_tpu_torch.models import ndt_map as tmap
 from ndtpso_slam_tpu_torch.models import scan as tscan
 from ndtpso_slam_tpu_torch.models import slam as tslam
+from ndtpso_slam_tpu_torch.ops import _build
 from ndtpso_slam_tpu_torch.ops import rollout as tro
 from ndtpso_slam_tpu_torch.ops import rollout_local as trl
 from ndtpso_slam_tpu_torch.ops import score as tscore
@@ -336,6 +345,92 @@ def test_solve_batch_rejects_unknown_and_unported(world):
         tmesh.solve_batch_sharded(None, *args, TMAP, cfg)
 
 
+# ------------------------------------------------ one solve per cluster
+
+H100_SMEM = 232448  # an H100's shared memory per block (opt-in)
+H100_SMS = 132
+
+
+# K2's C at P=4096 for B solves (rows) of N points (columns): the spread
+# over the 132 SMs at small B; at B=256 one CTA holds the particle state and
+# w unless N=1024's w needs two.
+@pytest.mark.parametrize("batch,n_pts,want", [
+    (b, n, c) for b, row in ((1, (8, 8, 8)), (3, (8, 8, 8)), (16, (8, 8, 8)), (256, (1, 1, 2)))
+    for n, c in zip((100, 384, 1024), row)
+])
+def test_rollout_cluster_chooser_table(batch, n_pts, want):
+    need = lambda c: tro.smem_bytes(n_pts, 4096, c)
+    assert _build.choose_cluster(batch, need, H100_SMEM, H100_SMS) == want
+
+
+@pytest.mark.parametrize("n_pts,most", [(384, 5189), (1024, 5073), (100, 5240)])
+def test_rollout_max_population(n_pts, most):
+    """Every CTA of K2 holds the whole particle state in shared memory, so P
+    is bounded whatever C: the most that fits beside w's slice at C=8, where
+    the chooser still finds a size, and one more particle fits no size."""
+    assert tro.max_population(n_pts, H100_SMEM) == most
+    need = lambda p: (lambda c: tro.smem_bytes(n_pts, p, c))
+    assert _build.choose_cluster(16, need(most), H100_SMEM, H100_SMS) == 8
+    with pytest.raises(ValueError, match="no cluster size"):
+        _build.choose_cluster(16, need(most + 1), H100_SMEM, H100_SMS)
+
+
+def _frozen_inputs(world, n=None, seed=4):
+    sten, pts = _port_packed(world)
+    if n is not None:
+        sten, pts = sten[..., :n], pts[..., :n]
+    rs = np.random.RandomState(seed)
+    guesses = torch.from_numpy(world["guesses"])
+    poses = guesses[:, None, :] + torch.from_numpy(
+        (rs.uniform(-0.3, 0.3, (B, 64, 3)) * [1.0, 1.0, 0.2]).astype(np.float32))
+    return poses, guesses, sten, pts
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8])
+def test_rank_sliced_frozen_cost_matches_plain(world, cluster):
+    """K2's sum order on C CTAs (per-rank partials, then rank order) against
+    the plain one-pass sum, at the frozen-solve cost tolerance."""
+    poses, binds, sten, pts = _frozen_inputs(world)
+    sliced = tro.packed_frozen_cost(poses, binds, sten, pts, TMAP, cluster=cluster)
+    plain = tro.packed_frozen_cost(poses, binds, sten, pts, TMAP)
+    assert (sliced < -1.0).sum() > 32
+    np.testing.assert_allclose(sliced.numpy(), plain.numpy(), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("cluster", [2, 8])
+def test_plain_rollout_in_cluster_order(world, cluster):
+    """On the CPU, cluster=C runs K2's plain version with the kernel's sum
+    order on C CTAs (the order the gpu tests hold the kernel to), within the
+    frozen-solve tolerance of the one-pass order."""
+    cfg = tcfg.PSOConfig(iterations=6, population=64)
+    sten, pts = _port_packed(world)
+    args = (*_targs(world)[:3], sten, pts, cfg, TMAP)
+    p1, c1 = tro.pso_rollout(*args)
+    pc, cc = tro.pso_rollout(*args, cluster=cluster)
+    ref = tro.pso_rollout_reference(*args, cluster=cluster)
+    assert torch.equal(cc, ref[1]) and torch.equal(pc, ref[0])
+    np.testing.assert_allclose(cc.numpy(), c1.numpy(), rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(pc.numpy(), p1.numpy(), atol=5e-3)
+
+
+def test_padded_points_score_zero_in_the_frozen_cost(world):
+    """Points past N (a ragged N=203 padded to a multiple of C=8 with zero
+    columns: invalid, unbuilt) score exactly 0 and leave the solve as it
+    was."""
+    poses, binds, sten, pts = _frozen_inputs(world, 203)
+    pad = 5
+    psten = torch.cat([sten, torch.zeros((*sten.shape[:-1], pad))], dim=-1)
+    ppts = torch.cat([pts, torch.zeros((*pts.shape[:-1], pad))], dim=-1)
+    only = tro.packed_frozen_cost(poses, binds, psten[..., 203:], ppts[..., 203:], TMAP)
+    assert torch.equal(only, torch.zeros_like(only))
+    cfg = tcfg.PSOConfig(iterations=6, population=64)
+    keys, guesses, devs = _targs(world)[:3]
+    p0, c0 = tro.pso_rollout(keys, guesses, devs, sten, pts, cfg, TMAP)
+    p1, c1 = tro.pso_rollout(keys, guesses, devs, psten, ppts, cfg, TMAP)
+    np.testing.assert_allclose(c1.numpy(), c0.numpy(), rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(p1.numpy(), p0.numpy(), atol=5e-3)
+
+
 # ------------------------------------------------ the kernels, on the card
 
 
@@ -346,41 +441,101 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# Seconds a kernel may take before its test fails: a cluster whose CTAs
+# disagree on a barrier deadlocks, and must fail rather than hang.
+GPU_TIMEOUT_S = 120
+
+
+def synced(seconds=GPU_TIMEOUT_S):
+    """Waits for the card's queued work, failing after `seconds`."""
+    stream = torch.cuda.current_stream()
+    deadline = time.monotonic() + seconds
+    while not stream.query():
+        if time.monotonic() > deadline:
+            pytest.fail(f"the kernel did not finish within {seconds} s (a cluster deadlock?)")
+        time.sleep(1e-3)
+
+
+def _check_rollout(args, cluster=None, **variant):
+    before = tro.pso_rollout.LAUNCHES
+    kp, kc = tro.pso_rollout(*args, cluster=cluster, **variant)
+    synced()
+    assert tro.pso_rollout.LAUNCHES == before + 1
+    # The plain version sums the points in the order of the kernel's cluster.
+    rp, rc = tro.pso_rollout_reference(*args, **variant, cluster=tro.pso_rollout.LAST_CLUSTER)
+    rtol, atol, patol = _TOL["rollout_bf16" if variant.get("score_dtype") else "rollout"]
+    np.testing.assert_allclose(kc.cpu().numpy(), rc.cpu().numpy(), rtol=rtol, atol=atol)
+    np.testing.assert_allclose(kp.cpu().numpy(), rp.cpu().numpy(), atol=patol)
+    return tro.pso_rollout.LAST_CLUSTER
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8])
 @pytest.mark.parametrize("population", [50, 200, 700])
 @pytest.mark.parametrize("variant", [
     dict(), dict(score_dtype="bf16"), dict(rng_mode="native"), dict(early_exit=2),
     dict(exp_mode="approx"),
 ])
-def test_rollout_kernel_matches_plain_on_gpu(world, cuda_device, population, variant):
-    """K2 against its plain version on the same card tensors.  The kernel
-    sums z = w·φ feature by feature, the plain version by matrix product, so
-    they are held to the frozen-solve tolerance (bf16: its own); the draws
-    are the same bits."""
+def test_rollout_kernel_matches_plain_on_gpu(world, cuda_device, population, variant, cluster):
+    """K2 against its plain version on the same card tensors, on clusters of
+    every size (None: the chooser's, 8 at B=3).  The kernel sums z = w·φ
+    feature by feature, the plain version by matrix product, so they are
+    held to the frozen-solve tolerance (bf16: its own); the draws are the
+    same bits."""
     cfg = tcfg.PSOConfig(iterations=10, population=population)
     sten, pts = _port_packed(world, cuda_device)
     args = (*_targs(world, device=cuda_device)[:3], sten, pts, cfg, TMAP)
-    before = tro.pso_rollout.LAUNCHES
-    kp, kc = tro.pso_rollout(*args, **variant)
-    torch.cuda.synchronize()
-    assert tro.pso_rollout.LAUNCHES == before + 1
-    rp, rc = tro.pso_rollout_reference(*args, **variant)
-    rtol, atol, patol = _TOL["rollout_bf16" if variant.get("score_dtype") else "rollout"]
-    np.testing.assert_allclose(kc.cpu().numpy(), rc.cpu().numpy(), rtol=rtol, atol=atol)
-    np.testing.assert_allclose(kp.cpu().numpy(), rp.cpu().numpy(), atol=patol)
+    assert _check_rollout(args, cluster, **variant) == (cluster or 8)
+
+
+def _batch_args(world, dev, n, batch, cfg, local=False):
+    """Kernel arguments for `batch` solves (the world's 3, cycled) of its
+    first n points, on dev."""
+    keys, guesses, devs, snaps, points, valid = _targs(world, device=dev)
+    nbr = tcost.bind_neighborhood(guesses, snaps, points, valid, TMAP)
+    if local:
+        sten, pts = trl.pack_rollout_local_inputs(nbr, points)
+        sten, pts = sten[:, :, :n], pts[:, :n]
+    else:
+        sten, pts = tro.pack_rollout_inputs(nbr, points)
+        sten, pts = sten[..., :n], pts[..., :n]
+    idx = torch.arange(batch, device=dev) % B
+    return (keys[idx], guesses[idx], devs[idx], sten[idx].contiguous(), pts[idx].contiguous(),
+            cfg, TMAP)
 
 
 @pytest.mark.gpu
-def test_rollout_local_turbo_kernel_matches_plain_on_gpu(world, cuda_device):
+@pytest.mark.parametrize("early_exit", [0, 2])
+@pytest.mark.parametrize("batch", [1, 3, 16])
+def test_rollout_kernel_ragged_points_and_batches_on_gpu(world, cuda_device, batch, early_exit):
+    """N=100 (not a multiple of C: the last CTA's slice is short), B in
+    {1, 3, 16}, with and without the early exit, which every CTA of a
+    cluster must take at the same iteration; f32 and the turbo bf16 mode."""
+    cfg = tcfg.PSOConfig(iterations=12, population=256)
+    args = _batch_args(world, cuda_device, 100, batch, cfg)
+    for cluster in (None, 4):
+        _check_rollout(args, cluster, early_exit=early_exit)
+    _check_rollout(args, None, early_exit=early_exit, rng_mode="native", score_dtype="bf16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8])
+def test_rollout_local_turbo_kernel_matches_plain_on_gpu(world, cuda_device, cluster):
     cfg = tcfg.PSOConfig(iterations=10, population=50)
-    keys, guesses, devs, snaps, points, valid = _targs(world, device=cuda_device)
-    nbr = tcost.bind_neighborhood(guesses, snaps, points, valid, TMAP)
-    sten, pts = trl.pack_rollout_local_inputs(nbr, points)
-    args = (keys, guesses, devs, sten, pts, cfg, TMAP)
-    kp, kc = trl.pso_rollout_local(*args, rng_mode="native")
-    rp, rc = trl.pso_rollout_local_reference(*args, rng_mode="native")
+    args = _batch_args(world, cuda_device, N_PAD, B, cfg, local=True)
+    kp, kc = trl.pso_rollout_local(*args, rng_mode="native", cluster=cluster)
+    synced()
+    assert trl.pso_rollout_local.LAST_CLUSTER == (cluster or 8)
+    rp, rc = trl.pso_rollout_local_reference(*args, rng_mode="native", cluster=cluster or 8)
     np.testing.assert_allclose(kc.cpu().numpy(), rc.cpu().numpy(), rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(kp.cpu().numpy(), rp.cpu().numpy(), atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_rollout_smem_matches_its_plain_formula_on_gpu(cuda_device):
+    lib = _build.load(tro.LIB)
+    for n, p, c in ((100, 50, 8), (384, 4096, 1), (1024, 4096, 2), (5, 1, 4)):
+        assert lib.ndt_rollout_smem_bytes(n, p, c) == tro.smem_bytes(n, p, c)
 
 
 @pytest.mark.gpu
