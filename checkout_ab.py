@@ -1,6 +1,6 @@
-"""Times the whole-solve kernels K1 and K2, E7's stages 1-3, the
-scan.launch step and K1's host time of one or more checkouts of this
-repository, on one GPU.
+"""Times the whole-solve kernels K1 and K2, the scoring kernel K3, E7's
+stages 1-3, the scan.launch step and K1's host time of one or more
+checkouts of this repository, on one GPU.
 
     python checkout_ab.py ROOT [ROOT ...] [--clusters]
 
@@ -12,10 +12,14 @@ phase 4's 50-scan scan.launch log (step latency, over STEP_RUNS runs of the
 log, each on a new node; then K1 at B=1 on the next solve's inputs: its
 CUDA-event time, the host time of one wrapper call until it returns, and
 the wall time of a call and a synchronize), phase 5's
-batch world (K2 f32 and turbo with early exit 2 at B=256; K2 bf16 and K1
-turbo on its first 16 solves) and E7's binding inputs at K2's shape
+batch world (K2 f32 and turbo with early exit 2 at B=256, K3 on one cost
+evaluation of its 256 solves; K2 bf16 and K1 turbo on its first 16 solves)
+and E7's binding inputs at K2's shape
 (stages 1-3).  Kernel times are CUDA events (chip_smoke.py's
-``_events_ms``); host times are medians of ``time.perf_counter``.  Prints
+``_events_ms``); host times are medians of ``time.perf_counter``.  K3's
+SASS (``cuobjdump -sass`` of the checkout's built library) gives the
+instructions its score loop runs per (particle, point) pair: the
+innermost loop holding MUFU.EX2, whose count is the pairs per trip.  Prints
 one JSON line per ROOT, with the card's name and power limit.
 ``--clusters`` adds, for checkouts whose wrappers take ``cluster=``, K1
 turbo and K2 bf16 at B=16 on every cluster size that fits.
@@ -42,6 +46,43 @@ def _smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def _loop_mix(sass: str) -> dict:
+    """Opcode counts per exp of the loop (backward branch) with the most
+    MUFU.EX2 in one function's SASS: per (particle, point) pair in a
+    scoring loop that takes one exp per pair."""
+    import collections
+
+    code = [(int(m.group(1), 16), m.group(2), m.group(3)) for m in re.finditer(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", sass)]
+    best = None
+    for addr, op, rest in code:
+        target = re.search(r"0x([0-9a-f]+)", rest) if op.startswith("BRA") else None
+        if target is None or int(target.group(1), 16) >= addr:
+            continue
+        body = [o for a, o, _ in code if int(target.group(1), 16) <= a <= addr]
+        exps = sum(o.startswith("MUFU.EX2") for o in body)
+        if exps and (best is None or exps > best[0] or (exps == best[0] and len(body) < len(best[1]))):
+            best = (exps, body)
+    if best is None:
+        return {}
+    exps, body = best
+    mix = collections.Counter(o.split(".")[0] for o in body)
+    return dict(per_pair=len(body) / exps, pairs_per_trip=exps,
+                mix={k: round(v / exps, 3) for k, v in mix.most_common()})
+
+
+def _k3_sass(sc, _build) -> dict:
+    """K3's score-loop mix per instantiation, from its built library."""
+    out = subprocess.run([os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"), "-sass",
+                          str(sc.LIB.path())], capture_output=True, text=True, check=True).stdout
+    mixes = {}
+    for fn in re.split(r"\n\s*Function : ", out)[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if "score_kernel" in name:
+            mixes[re.sub(r".*score_kernel", "score_kernel", name)] = _loop_mix(fn)
+    return mixes
 
 
 def _k1_next_solve(cs, node, lg):
@@ -116,11 +157,12 @@ def measure(root: str, clusters: bool) -> dict:
     from ndtpso_slam_tpu_torch.ops import rollout as ro
     from ndtpso_slam_tpu_torch.ops import rollout_bisect as rb
     from ndtpso_slam_tpu_torch.ops import rollout_local as rl
+    from ndtpso_slam_tpu_torch.ops import score as sc
 
     for mod in (cs, ro):
         if not os.path.abspath(mod.__file__).startswith(root):
             raise RuntimeError(f"imported {mod.__file__}, not from {root}")
-    _build.build(rl.LIB, ro.LIB, rb.LIB)  # before any timing
+    _build.build(rl.LIB, ro.LIB, rb.LIB, sc.LIB)  # before any timing
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -144,6 +186,10 @@ def measure(root: str, clusters: bool) -> dict:
     out["k2_f32_b256_ms"] = cs._events_ms(lambda: ro.pso_rollout(*packed), 3)
     out["k2_turbo_ee2_b256_ms"] = cs._events_ms(
         lambda: ro.pso_rollout(*packed, rng_mode="native", early_exit=2), 3)
+    ops = cs._score_inputs(world, 256)
+    out["k3_b256_ms"] = cs._events_ms(lambda: sc.fused_bound_scores(*ops), 20)
+    out["k3_sass"] = _k3_sass(sc, _build)
+    del ops
     small = cs._first(world, 16)
     ps, pl = cs._packed(small), cs._packed(small, local=True)
     out["k2_bf16_b16_ms"] = cs._events_ms(lambda: ro.pso_rollout(*ps, score_dtype="bf16"), 3)

@@ -21,7 +21,13 @@ thread-block cluster of C CTAs, C chosen by ops/_build.py:choose_cluster
    cells), 100-slot window, 50 particles x 30 iterations, 384 padded beams,
    over the 50-scan synthetic log of bench.py's SLAM workload; the per-robot
    trajectory gate of bench.py (mean error < 0.35 m, max < 0.7 m) and the
-   kernel's launch count; then the kernel against its plain version, both
+   kernel's launch count; the same log with the occupancy raster on
+   (build_og, 3000 x 3000 int8): the step p50/p95 beside a raster-off run
+   just before it, the launch count, the poses bit-equal to the raster-off
+   run (both under deterministic algorithms: the map's scatter-adds use
+   atomics), and where the incremental raster differs from a dense pass
+   over the final map (ROADMAP R1: the count of sub-cells and blocks, the
+   largest difference); then the kernel against its plain version, both
    timed, on the inputs of the solve that run would make next; then the
    log's last 10 scans fed again under torch.profiler (kernels per scan,
    device busy share, K1's share).
@@ -31,8 +37,11 @@ thread-block cluster of C CTAs, C chosen by ops/_build.py:choose_cluster
       rollout kernel in rollout, rollout_bf16 and rollout_turbo at B=3,
       N=384, P in {50, 200, 4096}, I=10, and with early exit 2; the turbo
       branch of the exact rollout kernel at B=3, P=50, and its Threefry
-      branch at B=3, P=8192 (16 particles per thread); the scoring kernel at
-      B=4, P=4096, N=384 on binds of the 5b workload;
+      branch at B=3, P=8192 (16 particles per thread); the global routes
+      (particle state in global scratch) of the frozen rollout kernel at
+      P=8192 and 16,384 and of the exact one at P=16,384; the scoring
+      kernel at B=4, P=4096, N=384 on binds of the 5b workload, held to
+      the float64 value of its sum;
    b. solve_batch at full width (B=256 solves of a 64 m map of 1 m cells,
       P=4096, I=50, 360 beams padded to 384) in rollout, rollout_turbo
       (early exit 2) and fast_fused: bench.py's accuracy gate (median xy
@@ -45,7 +54,11 @@ thread-block cluster of C CTAs, C chosen by ops/_build.py:choose_cluster
       rollout_local_turbo at B=16, the same widths: finite results, launch
       counts, and the two kernels not yet timed, against their plain
       versions as in 5b, with the clusters of each size the card holds at
-      once at their shapes (cudaOccupancyMaxActiveClusters).
+      once at their shapes (cudaOccupancyMaxActiveClusters);
+   d. the global routes through solve_batch: rollout at B=256, P=8192 and
+      rollout_local_turbo at B=16, P=16,384 (I=50): the accuracy gate,
+      the one launch, the route, and each kernel against its plain version
+      on the call's own inputs, timed.
 6. The variant studies ported from the TPU (ndtpso_slam_tpu_torch/experiments/),
    each driven once through the run() its entry point calls, at the TPU
    script's shapes, with the launch counts set to 0 just before and read
@@ -319,20 +332,22 @@ def phase_paths():
     print(f"[phase 3] 8 scans rollout_local vs local_exact: max |dpose| {diff:.3e}")
 
 
-def phase_main():
+def _run_main(lg, build_og):
+    """Phase 4's node over the log: (node, step seconds, total seconds, K1
+    launches, peak device memory of the run beyond what was allocated
+    before it), the launch count set to 0 just before."""
     import torch
 
-    from ndtpso_slam_tpu_torch.io import synthetic
     from ndtpso_slam_tpu_torch.node import NodeConfig, SlamNode
     from ndtpso_slam_tpu_torch.ops import rollout_local as rl
 
-    lg = synthetic.make_log(seed=2, n_scans=50, n_beams=360, world_size=50.0)
     cfg = NodeConfig(frame_size_m=300.0, cell_side_m=0.5, window_slots=100,
                      pso_iterations=30, pso_population=50, max_beams=384,
-                     cost_mode="rollout_local", build_og=False,
+                     cost_mode="rollout_local", build_og=build_og,
                      init_pose=tuple(lg.poses[0]))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     node = SlamNode(cfg, verbose=False)
     step_s = []
     rl.pso_rollout_local.LAUNCHES = 0
@@ -343,8 +358,19 @@ def phase_main():
                           lg.range_max, timestamp=float(lg.timestamps[i]))
         step_s.append(time.perf_counter() - ts)  # ends in the pose's copy to the host
     total = time.perf_counter() - t0
-    launches = rl.pso_rollout_local.LAUNCHES
-    peak = torch.cuda.max_memory_allocated()
+    return node, step_s, total, rl.pso_rollout_local.LAUNCHES, torch.cuda.max_memory_allocated() - base
+
+
+def _percentiles(step_s):
+    aligned = np.array(step_s[1:]) * 1e3  # the first scan is not aligned
+    return np.percentile(aligned, 50), np.percentile(aligned, 95)
+
+
+def phase_main():
+    from ndtpso_slam_tpu_torch.io import synthetic
+
+    lg = synthetic.make_log(seed=2, n_scans=50, n_beams=360, world_size=50.0)
+    node, step_s, total, launches, peak = _run_main(lg, build_og=False)
     poses = np.stack(node.poses)
     err = np.hypot(poses[:, 0] - lg.poses[:, 0], poses[:, 1] - lg.poses[:, 1])
     check(np.isfinite(poses).all() and poses.shape == (50, 3), "poses not finite [50, 3]")
@@ -352,13 +378,74 @@ def phase_main():
     check(launches == aligns, f"kernel launches {launches} != aligns {aligns}")
     check(err.mean() < GATE_MEAN_M and err.max() < GATE_MAX_M,
           f"trajectory gate: mean {err.mean():.4f} m, max {err.max():.4f} m")
-    aligned = np.array(step_s[1:]) * 1e3
+    p50, p95 = _percentiles(step_s)
     print(f"[phase 4] 300 m / 0.5 m / 100 slots / P=50 I=30 / N=384, 50 scans: "
           f"mean err {err.mean():.4f} m, max {err.max():.4f} m; "
           f"{len(lg.ranges) / total:.2f} scans/s; aligned-step latency "
-          f"p50 {np.percentile(aligned, 50):.3f} ms p95 {np.percentile(aligned, 95):.3f} ms; "
+          f"p50 {p50:.3f} ms p95 {p95:.3f} ms; "
           f"peak device memory {peak / 2**30:.3f} GiB; kernel launches {launches}")
     return node, lg, launches
+
+
+# Phase 4's raster runs: off, on, on, off, off, on; the step p50/p95 of
+# each side is the median over its runs (one run's p50 moves by ms on a
+# shared host).
+OG_ORDER = (False, True, True, False, False, True)
+
+
+def phase_main_og(node_off, lg):
+    """Phase 4 again with the occupancy raster on (3000 x 3000 int8 at
+    0.1 m), alternating with runs without it (OG_ORDER): the K1 launches,
+    the step p50/p95 of both, the poses bit for bit (the raster is an
+    output only), and R1: where the incremental raster differs from a
+    dense pass over the final map."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.models import occupancy
+
+    pct = {False: [], True: []}
+    for og_on in OG_ORDER:
+        run = _run_main(lg, build_og=og_on)
+        pct[og_on].append(_percentiles(run[1]))
+        if og_on:
+            node, step_s, total, launches, peak = run
+            check(launches == len(lg.ranges) - 1, f"raster on: kernel launches {launches}")
+        del run
+    poses_on, poses_off = np.stack(node.poses), np.stack(node_off.poses)
+    moved = float(np.abs(poses_on - poses_off).max())
+    # The map's scatter-adds use atomics on CUDA, so two runs may differ in
+    # the last bits of a cell's sums whatever the raster does; the bit-for-bit
+    # comparison runs both with deterministic algorithms.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        det = [np.stack(_run_main(lg, build_og=og)[0].poses) for og in (False, True)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(np.array_equal(det[0], det[1]), "raster on moved a pose (deterministic runs): max "
+          f"|dpose| {np.abs(det[0] - det[1]).max():.3e}")
+    og = node.state.og
+    cfg = node.slam_cfg
+    dense = occupancy.og_update(occupancy.init_og(cfg.map, cfg.og, og.og.device), node.state.map,
+                                cfg.map, cfg.og)
+    diff = og.og.to(torch.int16) - dense.og.to(torch.int16)
+    stale = diff != 0
+    h, w, per = occupancy.og_dims(cfg.map, cfg.og)
+    blocks = stale.reshape(h // per, per, w // per, per).any(dim=3).any(dim=1)
+    n_stale, n_blocks = int(stale.sum()), int(blocks.sum())
+    largest = int(diff.abs().max())
+    bbox = [int(getattr(og, k)) for k in ("min_x", "max_x", "min_y", "max_y")]
+    check(int(torch.count_nonzero(og.og)) > 0 and bbox[0] <= bbox[1], "raster on: empty raster")
+    (on50, on95), (off50, off95) = (np.median(pct[k], axis=0) for k in (True, False))
+    runs = lambda k: ", ".join(f"{a:.3f}" for a, _ in pct[k])
+    print(f"[phase 4] raster on ({h} x {w} int8, 0.1 m), {len(pct[True])} runs each way "
+          f"alternating: aligned-step latency p50 {on50:.3f} ms p95 {on95:.3f} ms (p50 by run "
+          f"{runs(True)}); raster off p50 {off50:.3f} ms p95 {off95:.3f} ms ({runs(False)}); "
+          f"peak device memory {peak / 2**30:.3f} GiB; kernel launches {launches}; poses "
+          f"bit-equal to the raster-off run under deterministic algorithms (the timed pair "
+          f"differs by {moved:.3e}); {int(torch.count_nonzero(og.og))} sub-cells nonzero, bbox "
+          f"{bbox}; R1: incremental vs dense over the final map: {n_stale} sub-cells in "
+          f"{n_blocks} blocks differ, largest |difference| {largest}")
+    phase_main_profile(node, lg, tag=" with the raster on")
 
 
 # Phase 4's profiled window: the log's last scans fed again after the gated
@@ -366,7 +453,7 @@ def phase_main():
 PROFILE_SCANS = 10
 
 
-def phase_main_profile(node, lg):
+def phase_main_profile(node, lg, tag=""):
     """Phase 4's step under torch.profiler: device kernels per scan, device
     busy share of the wall time, and K1's share of the device time."""
     import torch
@@ -387,7 +474,7 @@ def phase_main_profile(node, lg):
     busy = sum(dev_us(e) for e in kern) / 1e3 / PROFILE_SCANS
     k1 = sum(dev_us(e) for e in kern if "rollout_local_kernel" in e.key) / 1e3 / PROFILE_SCANS
     launches = sum(e.count for e in kern) / PROFILE_SCANS
-    print(f"[phase 4] profiled, {PROFILE_SCANS} more scans: {launches:.1f} device kernels per scan, "
+    print(f"[phase 4] profiled{tag}, {PROFILE_SCANS} more scans: {launches:.1f} device kernels per scan, "
           f"busy {busy:.3f} of {wall:.3f} ms per scan ({100 * busy / wall:.1f}%), K1 {k1:.4f} ms "
           f"({100 * k1 / busy:.1f}% of device time)")
 
@@ -595,6 +682,26 @@ def phase_batch_kernels(world):
         worst[name] = max(dpose, dcost)
         print(f"[phase 5a] {name} B={b} N=384 P={pop} I=10 (cluster "
               f"{rl.pso_rollout_local.LAST_CLUSTER}): max |dpose| {dpose:.3e} max |dcost| {dcost:.3e}")
+
+    # The large-population routes (state in global scratch): K2 above its
+    # shared-memory limit (5,189 at N=384), K1 above 16 particles per thread.
+    for name, pop, run, plain in (
+        ("rollout", 8192, ro.pso_rollout, ro.pso_rollout_reference),
+        ("rollout", 16384, ro.pso_rollout, ro.pso_rollout_reference),
+        ("rollout_local", 16384, rl.pso_rollout_local, rl.pso_rollout_local_reference),
+    ):
+        s, p = (lsten, lpts) if name == "rollout_local" else (sten, pts)
+        args = (keys, guesses, devs, s, p, C.PSOConfig(iterations=10, population=pop), mc)
+        got = run(*args)
+        torch.cuda.synchronize()
+        check(run.LAST_ROUTE == "global", f"{name} P={pop}: route {run.LAST_ROUTE}")
+        ref = plain(*args, cluster=run.LAST_CLUSTER or 1)
+        tol = (COST_RTOL, COST_ATOL, POSE_ATOL) if name == "rollout_local" else _TOLERANCES[name]
+        dpose, dcost = _compare(f"{name} P={pop}", got, ref, *tol)
+        key = f"{name}_global"
+        worst[key] = max(worst.get(key, 0.0), dpose, dcost)
+        print(f"[phase 5a] {name} global route B={b} N=384 P={pop} I=10 (cluster "
+              f"{run.LAST_CLUSTER}): max |dpose| {dpose:.3e} max |dcost| {dcost:.3e}")
 
     worst["score"] = _check_score(_score_inputs(world, 4), "5a", "B=4 N=384 P=4096 F=15")
     return worst
@@ -838,7 +945,7 @@ def phase_batch(world):
             bnd = _rollout_bound(packed[3], packed[4], cfg.population, live)
             shape = (f"B={b} N=384 P={cfg.population} I={cfg.iterations} ee={ee}, one solve_batch; "
                      f"iterations run {sum(live)} of {b * cfg.iterations}")
-        ms = _events_ms(kern, 3)
+        ms = _events_ms(kern, 20 if kname == "score" else 3)
         cluster = None if kname == "score" else ro.pso_rollout.LAST_CLUSTER
         plain_ms = _events_ms(plain, 1)
         print(f"[phase 5b] {kname} kernel vs plain ({shape}): max abs err {derr:.3e}; "
@@ -919,6 +1026,71 @@ def phase_batch_small(world):
     return out
 
 
+# Phase 5d: the large-population routes through solve_batch.  (mode, B,
+# population): K2's global route at bench.py's batch width and twice its
+# population; K1's (turbo, as phase 5c) at B=16 and 16,384 particles.
+LARGE = (("rollout", BATCH, 8192), ("rollout_local_turbo", BATCH_SMALL, 16384))
+
+
+def phase_batch_large(world):
+    """5d: solve_batch in LARGE's modes: the accuracy gate, the one launch
+    of the global route, and the kernel against its plain version on the
+    call's own inputs, timed.  Returns {kernel name: (launches, ms, plain
+    ms, max abs err, bound, cluster)}."""
+    import dataclasses
+
+    import torch
+
+    from ndtpso_slam_tpu_torch.ops import _build
+    from ndtpso_slam_tpu_torch.ops import rollout as ro
+    from ndtpso_slam_tpu_torch.ops import rollout_local as rl
+    from ndtpso_slam_tpu_torch.parallel import mesh
+
+    out = {}
+    for mode, b, pop in LARGE:
+        sub = _first(world, b)
+        sub["pso_cfg"] = cfg = dataclasses.replace(sub["pso_cfg"], population=pop)
+        local = mode.startswith("rollout_local")
+        lib = rl.pso_rollout_local if local else ro.pso_rollout
+        _reset_counts()
+        res = mesh.solve_batch(*sub["args"], sub["map_cfg"], cfg, mode)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        want = _expected_launches(mode, cfg.iterations)
+        check(all(counts[k] == want.get(k, 0) for k in counts),
+              f"{mode} P={pop}: launches {counts}, expected {want}")
+        check(lib.LAST_ROUTE == "global", f"{mode} P={pop}: route {lib.LAST_ROUTE}")
+        err = np.abs(res.pose.cpu().numpy() - sub["true"])
+        med_xy, med_th = float(np.median(err[:, :2])), float(np.median(err[:, 2]))
+        check(med_xy < GATE_MEDIAN_XY_M and med_th < GATE_MEDIAN_TH_RAD,
+              f"{mode} P={pop}: accuracy gate: median xy {med_xy:.4f} m, th {med_th:.5f} rad")
+        packed = _packed(sub, local=local)
+        kw = dict(rng_mode="native") if "turbo" in mode else {}
+        kern = lambda: lib(*packed, **kw)
+        plain_fn = rl.pso_rollout_local_reference if local else ro.pso_rollout_reference
+        got = kern()
+        torch.cuda.synchronize()
+        cluster = lib.LAST_CLUSTER or 1
+        plain = lambda: plain_fn(*packed, **kw, cluster=cluster)
+        tol = _TOLERANCES["rollout_local_turbo" if local else "rollout"]
+        derr = max(_compare(f"{mode} P={pop}", got, plain(), *tol))
+        ms = _events_ms(kern, 3)
+        plain_ms = _events_ms(plain, 1)
+        iters = [cfg.iterations] * b
+        bnd = (_rollout_local_bound(packed[3], packed[4], pop, iters) if local
+               else _rollout_bound(packed[3], packed[4], pop, iters))
+        scratch = b * cluster * _build.slice_floats(pop) * 4
+        print(f"[phase 5d] solve_batch {mode} B={b} P={pop} I={cfg.iterations} N=384 (global "
+              f"route, scratch {scratch / 2**20:.1f} MiB): median xy {med_xy:.4f} m, median th "
+              f"{med_th:.5f} rad; launches {counts}; kernel vs plain max abs err {derr:.3e}; kernel "
+              f"{ms:.4f} ms (cluster {cluster}), plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}, {100 * bnd[0] / ms:.1f}% of it)")
+        name = "rollout_local_turbo_global" if local else "rollout_global"
+        out[name] = (counts["rollout_local" if local else "rollout"], ms, plain_ms, derr, bnd,
+                     cluster)
+    return out
+
+
 def _clusters_held(name, n_pts, population):
     """{C: the most clusters of C CTAs the card holds at once}
     (cudaOccupancyMaxActiveClusters) for K1 (``rollout_local*``) or K2 at
@@ -941,7 +1113,7 @@ def _clusters_held(name, n_pts, population):
             continue
         out = ctypes.c_int(0)
         err = (lib.ndt_rollout_local_max_active_clusters(n_pts, population, c, 2, ctypes.byref(out))
-               if local else lib.ndt_rollout_max_active_clusters(n_pts, population, c,
+               if local else lib.ndt_rollout_max_active_clusters(n_pts, population, c, 0,
                                                                 ctypes.byref(out)))
         check(err == 0, f"{name}: cudaOccupancyMaxActiveClusters at C={c} failed ({err})")
         held[c] = out.value
@@ -1625,12 +1797,15 @@ def main() -> int:
     worst = phase_kernel()
     phase_paths()
     node, lg, launches = phase_main()
+    phase_main_og(node, lg)
     worst_main, ms, plain_ms, bnd, cluster = phase_main_kernel(node, lg)
     phase_main_profile(node, lg)
     world = batch_world(BATCH, torch.device("cuda"))
     worst_small = phase_batch_kernels(world)
     timed = phase_batch(world)
     timed.update(phase_batch_small(world))
+    timed.update(phase_batch_large(world))
+    worst_small["rollout_local_turbo_global"] = worst_small["rollout_local_global"]
     tpu = "ndtpso_slam_tpu/ops/"
     kernels = [_entry("rollout_local", SRC + "rollout_local.cu", tpu + "pallas_rollout.py:551",
                       launches, max(worst, worst_main, worst_small["rollout_local"]), ms, plain_ms,
@@ -1641,9 +1816,13 @@ def main() -> int:
         ("rollout_bf16", "rollout.cu", "pallas_rollout.py:262"),
         ("rollout_turbo", "rollout.cu", "pallas_rollout.py:148"),
         ("score", "score.cu", "pallas_score.py:41"),
+        ("rollout_global", "rollout.cu", "pallas_rollout.py:111"),
+        ("rollout_local_turbo_global", "rollout_local.cu", "pallas_rollout.py:618"),
     ):
         n_launch, k_ms, p_ms, wide_err, k_bnd, k_cluster = timed[name]
         extra = {} if name == "score" else dict(cluster=k_cluster)
+        if name.endswith("_global"):
+            extra["state"] = "global scratch"
         kernels.append(_entry(name, SRC + source, tpu + replaces, n_launch,
                               max(worst_small[name], wide_err), k_ms, p_ms, k_bnd, **extra))
     kernels.extend(phase_studies(timed["rollout"][1]))

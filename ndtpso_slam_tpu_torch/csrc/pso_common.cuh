@@ -21,8 +21,9 @@
 //   bf16 operands) are template parameters, so the score loop has no
 //   runtime branch on them.
 // * One solve per thread-block cluster (K1, K2): cluster_total adds the C
-//   CTAs' partial costs of one particle in rank order, and launch_cluster
-//   launches a kernel with its cluster dimension.
+//   CTAs' partial costs of one particle in rank order (cluster_total_global:
+//   the same for partials in global scratch, the large-population routes),
+//   and launch_cluster launches a kernel with its cluster dimension.
 
 #pragma once
 
@@ -666,6 +667,25 @@ __device__ __forceinline__ float cluster_total(float* part, int j, int nranks) {
   cg::cluster_group cluster = cg::this_cluster();
   float t = cluster.map_shared_rank(part, 0)[j];
   for (int r = 1; r < nranks; ++r) t += cluster.map_shared_rank(part, r)[j];
+  return t;
+}
+
+// The large-population routes of K1 and K2 keep one CTA's particle state in
+// a slice of global scratch: [kState, P] by component (position, velocity,
+// personal best, its cost; component k of particle j at k * P + j), then the
+// partial costs [P + 1].
+constexpr int kState = 10;
+__host__ __device__ inline size_t slice_floats(int p) { return (kState + 1) * (size_t)p + 1; }
+
+// cluster_total for partials in global memory: each CTA of the cluster owns
+// a slice of `stride` floats of scratch, consecutive in rank order from
+// `rank0` (rank 0's slice), and keeps its partials at offset `part` in it.
+// The reads go to L2 (ld.global.cg): a peer's writes, ordered by the
+// cluster barrier, are never read from a stale L1 line.
+__device__ __forceinline__ float cluster_total_global(const float* rank0, size_t stride, int j,
+                                                     int nranks) {
+  float t = __ldcg(rank0 + j);
+  for (int r = 1; r < nranks; ++r) t += __ldcg(rank0 + (size_t)r * stride + j);
   return t;
 }
 

@@ -27,16 +27,26 @@
 // pipes and the special-function units.  What the design does about it:
 //
 // * The scoring switches (exp mode, bf16 operands) and the draw stream are
-//   template parameters (all 12 combinations are compiled; the C entry
-//   dispatches once), so the score loop has no runtime branch: the staged
+//   template parameters (all 12 combinations are compiled, for each route;
+//   the C entry dispatches once), so the score loop has no runtime branch: the staged
 //   twin (rollout_bisect.cu) measured 4.1 ms of the one-block K2's 37.3 ms
 //   in those branches (PERF.md).
 // * The f32 score loop loads each w row (four broadcast LDS.128) once per
 //   tile of 4 particles and runs the 4 fmaf chains side by side.  The registers
 //   that takes come from the particle state, which moved to shared memory
 //   ([10, P] floats: position, velocity, personal best and its cost, 160 KB
-//   at P = 4096, beside w's 24.6 KB at N = 384; so P is bounded by shared
-//   memory, ~4,700 at N = 384).
+//   at P = 4096, beside w's 24.6 KB at N = 384; so this route is bounded by
+//   shared memory, ~4,700 particles at N = 384, 5,189 at C = 8).
+// * Larger populations take the global route (kGlobal): the same code with
+//   the state [10, P] and the partial costs [P + 1] in a per-CTA slice of a
+//   global scratch buffer the wrapper allocates (B * C slices; every CTA of
+//   a cluster still runs the scaffolding redundantly), and only w in shared
+//   memory.  Each thread keeps touching only its own particles, j % 512 ==
+//   tid, so the accesses are coalesced ([10, P] by component) and need no
+//   more synchronization than the shared route's; the peers' partials are
+//   read through L2 after the cluster barrier (cluster_total_global).  The
+//   state traffic, ~80 B per particle per iteration, stays small beside the
+//   score loop's N * 17 operations per particle.
 // * Small batches spread over the card: with B = 16 solves, 16 blocks left
 //   116 of 132 SMs idle; a cluster of C = 8 CTAs per solve, each binding and
 //   scoring N / C points, uses 128 (an H100 holds 15 such clusters at once,
@@ -70,7 +80,6 @@ using namespace ndt;
 namespace cg = cooperative_groups;
 
 constexpr int kThreads = 512;
-constexpr int kState = 10;   // floats of particle state: pos[3] vel[3] pbest[3] pbest cost
 
 struct Params {
   int n_pts;
@@ -87,7 +96,7 @@ struct Params {
   float zdev0, zdev1, zdev2;
 };
 
-template <bool kPhilox, bool kBf16, int kMode>
+template <bool kPhilox, bool kBf16, int kMode, bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 rollout_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
                const float* __restrict__ guesses,   // [B, 3]
@@ -95,6 +104,7 @@ rollout_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
                const float* __restrict__ sten_all,  // [B, K2, 8, N]
                const float* __restrict__ pts_all,   // [B, 8, N]
                float* __restrict__ out,             // [B, 4]
+               float* __restrict__ scratch,         // [B * C, slice_floats(P)] (kGlobal)
                Params prm) {
   cg::cluster_group cluster = cg::this_cluster();
   const int nranks = (int)cluster.num_blocks();
@@ -118,10 +128,12 @@ rollout_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
 
   // Shared memory: the w rows of this CTA's points [S, kWRow], the particle
   // state [kState, P] (component k of particle j at k * P + j), and the
-  // partial scores [P + 1] its peers read (slot p: the gbest seed).
+  // partial scores [P + 1] its peers read (slot p: the gbest seed); on the
+  // global route the state and the partials lie in this CTA's scratch slice.
   extern __shared__ float4 smem4[];
   float* s_w = reinterpret_cast<float*>(smem4);
-  float* s_pos = s_w + (size_t)s * kWRow;
+  float* s_pos =
+      kGlobal ? scratch + (size_t)blockIdx.x * slice_floats(p) : s_w + (size_t)s * kWRow;
   float* s_vel = s_pos + 3 * (size_t)p;
   float* s_pb = s_vel + 3 * (size_t)p;
   float* s_pbc = s_pb + 3 * (size_t)p;
@@ -186,8 +198,15 @@ rollout_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
       if (tid == 0) s_part[p] = t;
     }
     cluster.sync();
-    for (int j = tid; j < p; j += kThreads) on_cost(j, -cluster_total(s_part, j, nranks));
-    const float g_cost = with_seed ? -cluster_total(s_part, p, nranks) : 0.0f;
+    const auto total = [&](int j) {
+      if constexpr (kGlobal)
+        return cluster_total_global(s_part - (size_t)rank * slice_floats(p), slice_floats(p), j,
+                                    nranks);
+      else
+        return cluster_total(s_part, j, nranks);
+    };
+    for (int j = tid; j < p; j += kThreads) on_cost(j, -total(j));
+    const float g_cost = with_seed ? -total(p) : 0.0f;
     cluster.sync();
     return g_cost;
   };
@@ -262,61 +281,89 @@ rollout_kernel(const uint32_t* __restrict__ keys,   // [B, 2]
   }
 }
 
-size_t smem_bytes(int n, int p, int cluster) {
+// Dynamic shared memory of one CTA: w's rows, and on the shared route the
+// state and the partials.
+size_t smem_bytes(int n, int p, int cluster, bool global) {
   const size_t s = (size_t)((n + cluster - 1) / cluster);
-  return sizeof(float) * (kWRow * s + (kState + 1) * (size_t)p + 1);
+  return sizeof(float) * (kWRow * s + (global ? 0 : slice_floats(p)));
 }
 
-template <bool kPhilox, bool kBf16, int kMode>
+template <bool kPhilox, bool kBf16, int kMode, bool kGlobal>
 int launch(const Params& prm, int batch, int cluster, size_t smem, cudaStream_t stream,
            const void* keys, const void* guesses, const void* devs, const void* sten,
-           const void* pts, void* out) {
-  return launch_cluster(rollout_kernel<kPhilox, kBf16, kMode>, batch * cluster, kThreads, cluster,
-                        smem, stream, static_cast<const uint32_t*>(keys),
+           const void* pts, void* out, void* scratch) {
+  return launch_cluster(rollout_kernel<kPhilox, kBf16, kMode, kGlobal>, batch * cluster, kThreads,
+                        cluster, smem, stream, static_cast<const uint32_t*>(keys),
                         static_cast<const float*>(guesses), static_cast<const float*>(devs),
                         static_cast<const float*>(sten), static_cast<const float*>(pts),
-                        static_cast<float*>(out), prm);
+                        static_cast<float*>(out), static_cast<float*>(scratch), prm);
 }
 
-template <bool kPhilox, bool kBf16>
+template <bool kPhilox, bool kBf16, bool kGlobal>
 int by_exp_mode(int exp_mode, const Params& prm, int batch, int cluster, size_t smem,
                 cudaStream_t s, const void* keys, const void* guesses, const void* devs,
-                const void* sten, const void* pts, void* out) {
+                const void* sten, const void* pts, void* out, void* scratch) {
   switch (exp_mode) {
     case kExp:
-      return launch<kPhilox, kBf16, kExp>(prm, batch, cluster, smem, s, keys, guesses, devs,
-                                          sten, pts, out);
+      return launch<kPhilox, kBf16, kExp, kGlobal>(prm, batch, cluster, smem, s, keys, guesses,
+                                                   devs, sten, pts, out, scratch);
     case kExp2:
-      return launch<kPhilox, kBf16, kExp2>(prm, batch, cluster, smem, s, keys, guesses, devs,
-                                           sten, pts, out);
+      return launch<kPhilox, kBf16, kExp2, kGlobal>(prm, batch, cluster, smem, s, keys, guesses,
+                                                    devs, sten, pts, out, scratch);
     case kApprox:
-      return launch<kPhilox, kBf16, kApprox>(prm, batch, cluster, smem, s, keys, guesses, devs,
-                                             sten, pts, out);
+      return launch<kPhilox, kBf16, kApprox, kGlobal>(prm, batch, cluster, smem, s, keys, guesses,
+                                                      devs, sten, pts, out, scratch);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+template <bool kGlobal>
+int by_route(int philox, int bf16, int exp_mode, const Params& prm, int batch, int cluster,
+             size_t smem, cudaStream_t s, const void* keys, const void* guesses, const void* devs,
+             const void* sten, const void* pts, void* out, void* scratch) {
+  if (philox && bf16)
+    return by_exp_mode<true, true, kGlobal>(exp_mode, prm, batch, cluster, smem, s, keys, guesses,
+                                            devs, sten, pts, out, scratch);
+  if (philox)
+    return by_exp_mode<true, false, kGlobal>(exp_mode, prm, batch, cluster, smem, s, keys,
+                                             guesses, devs, sten, pts, out, scratch);
+  if (bf16)
+    return by_exp_mode<false, true, kGlobal>(exp_mode, prm, batch, cluster, smem, s, keys,
+                                             guesses, devs, sten, pts, out, scratch);
+  return by_exp_mode<false, false, kGlobal>(exp_mode, prm, batch, cluster, smem, s, keys, guesses,
+                                            devs, sten, pts, out, scratch);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one CTA of a cluster of `cluster` needs.
-size_t ndt_rollout_smem_bytes(int n_pts, int population, int cluster) {
-  return smem_bytes(n_pts, population, cluster);
+// Dynamic shared memory one CTA of a cluster of `cluster` needs, on the
+// global route (global != 0) or the shared one.
+size_t ndt_rollout_smem_bytes(int n_pts, int population, int cluster, int global) {
+  return smem_bytes(n_pts, population, cluster, global != 0);
 }
+
+// Floats of one CTA's slice of the global route's scratch.
+size_t ndt_rollout_slice_floats(int population) { return slice_floats(population); }
 
 // The most clusters of `cluster` CTAs the device holds at once for the
-// shape, into *out (every instantiation has 512 threads at <= 128
-// registers, so one stands for all).  Returns the CUDA error, or 0.
-int ndt_rollout_max_active_clusters(int n_pts, int population, int cluster, int* out) {
-  return max_active_clusters(rollout_kernel<false, false, kExp>, kThreads, cluster,
-                             smem_bytes(n_pts, population, cluster), out);
+// shape and route, into *out (every instantiation has 512 threads at <= 128
+// registers, so one per route stands for all).  Returns the CUDA error, or 0.
+int ndt_rollout_max_active_clusters(int n_pts, int population, int cluster, int global, int* out) {
+  const size_t smem = smem_bytes(n_pts, population, cluster, global != 0);
+  return global ? max_active_clusters(rollout_kernel<false, false, kExp, true>, kThreads, cluster,
+                                      smem, out)
+                : max_active_clusters(rollout_kernel<false, false, kExp, false>, kThreads, cluster,
+                                      smem, out);
 }
 
-// Launches B solves on `stream`, one cluster of `cluster` CTAs each.
-// Returns cudaGetLastError() after the launch.
+// Launches B solves on `stream`, one cluster of `cluster` CTAs each: with
+// scratch == nullptr on the shared route, else on the global route with
+// scratch [B * cluster, slice_floats(population)] floats.  Returns
+// cudaGetLastError() after the launch.
 int ndt_rollout(const void* keys, const void* guesses, const void* devs, const void* sten,
-                const void* pts, void* out, int batch, int n_pts, int population,
+                const void* pts, void* out, void* scratch, int batch, int n_pts, int population,
                 int iterations, int radius, int early_exit, int philox, int bf16,
                 int exp_mode, int cluster, float half, float cell_side, float w, float c1,
                 float c2, float w_damping, float zdev0, float zdev1, float zdev2, void* stream) {
@@ -325,19 +372,14 @@ int ndt_rollout(const void* keys, const void* guesses, const void* devs, const v
     return (int)cudaErrorInvalidValue;
   const Params prm{n_pts, population, iterations, radius, early_exit, half, cell_side,
                    w, c1, c2, w_damping, zdev0, zdev1, zdev2};
-  const size_t smem = smem_bytes(n_pts, population, cluster);
+  const bool global = scratch != nullptr;
+  const size_t smem = smem_bytes(n_pts, population, cluster, global);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (philox && bf16)
-    return by_exp_mode<true, true>(exp_mode, prm, batch, cluster, smem, s, keys, guesses, devs,
-                                   sten, pts, out);
-  if (philox)
-    return by_exp_mode<true, false>(exp_mode, prm, batch, cluster, smem, s, keys, guesses, devs,
-                                    sten, pts, out);
-  if (bf16)
-    return by_exp_mode<false, true>(exp_mode, prm, batch, cluster, smem, s, keys, guesses, devs,
-                                    sten, pts, out);
-  return by_exp_mode<false, false>(exp_mode, prm, batch, cluster, smem, s, keys, guesses, devs,
-                                   sten, pts, out);
+  if (global)
+    return by_route<true>(philox, bf16, exp_mode, prm, batch, cluster, smem, s, keys, guesses,
+                          devs, sten, pts, out, scratch);
+  return by_route<false>(philox, bf16, exp_mode, prm, batch, cluster, smem, s, keys, guesses,
+                         devs, sten, pts, out, scratch);
 }
 
 }  // extern "C"

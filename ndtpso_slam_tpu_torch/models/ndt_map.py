@@ -105,10 +105,12 @@ def _centers_of(cfg: MapConfig, idx: torch.Tensor, dtype) -> torch.Tensor:
     return torch.stack([(ix + 0.5) * side - half, (iy + 0.5) * side - half], dim=-1)
 
 
-def cell_centers(cfg: MapConfig, dtype=torch.float32, device="cuda") -> torch.Tensor:
-    """World coordinates of each cell's centre, [C, 2]."""
-    i = torch.arange(cfg.num_cells, dtype=torch.int32, device=resolve_device(device))
-    return _centers_of(cfg, i, dtype)
+def cell_centers(cfg: MapConfig, dtype=torch.float32, device="cuda", idx=None) -> torch.Tensor:
+    """World coordinates of each cell's centre, [C, 2], or of cells ``idx``
+    [..., 2] (the same values, without the whole grid's)."""
+    if idx is None:
+        idx = torch.arange(cfg.num_cells, dtype=torch.int32, device=resolve_device(device))
+    return _centers_of(cfg, idx, dtype)
 
 
 def add_points(

@@ -9,7 +9,9 @@ Port of ``ndtpso_slam_tpu/models/slam.py`` with recovery off
 * the first scan: no align, pose := previous pose
   (``ndtpso_slam_node.cpp:188-195``);
 * the map update with the aligned pose, then an explicit build of the cells
-  this scan and the previous one touched.
+  this scan and the previous one touched;
+* with ``cfg.og.enabled``, the occupancy raster refreshed from the cells this
+  scan touched (``models/occupancy.py:og_update_incremental``).
 
 Differences from the JAX package, none of which changes a result:
 
@@ -32,7 +34,7 @@ import torch
 
 from ndtpso_slam_tpu_torch.config import SlamConfig, resolve_device
 from ndtpso_slam_tpu_torch.models import cost as cost_mod
-from ndtpso_slam_tpu_torch.models import ndt_map
+from ndtpso_slam_tpu_torch.models import ndt_map, occupancy
 from ndtpso_slam_tpu_torch.models.pso import PsoResult, pso_solve
 from ndtpso_slam_tpu_torch.models.scan import Scan
 from ndtpso_slam_tpu_torch.ops import rng
@@ -54,7 +56,7 @@ class AlignState:
 class SlamState:
     map: ndt_map.NdtMapState
     align: AlignState
-    og: Optional[object]  # occupancy grid: not ported yet, always None
+    og: Optional[occupancy.OccupancyGrid]  # None unless cfg.og.enabled
     pose: torch.Tensor  # [3] current estimate
     step: int
     fitness: torch.Tensor  # [] mean exact NDT score per valid beam
@@ -73,7 +75,7 @@ def init_slam(cfg: SlamConfig, initial_pose=(0.0, 0.0, 0.0), device="cuda") -> S
             prev_pose=pose.clone(), pose_diff=torch.zeros(3, dtype=dtype, device=dev),
             iter=0,
         ),
-        og=None,
+        og=occupancy.init_og(cfg.map, cfg.og, dev) if cfg.og.enabled else None,
         pose=pose,
         step=0,
         fitness=torch.zeros((), dtype=dtype, device=dev),
@@ -105,8 +107,6 @@ def check_supported(cfg: SlamConfig) -> None:
         )
     if cfg.recovery.enabled:
         raise NotImplementedError("tracking-loss recovery is not ported yet (ROADMAP B2)")
-    if cfg.og.enabled:
-        raise NotImplementedError("the occupancy grid is not ported yet (ROADMAP B1)")
     if cfg.map.ring_rows > 0:
         raise NotImplementedError("sparse ring_rows is not ported yet (ROADMAP A5)")
 
@@ -215,8 +215,13 @@ def slam_step(
     # A scan changes only the cells it binned into, plus last scan's cells
     # (post-rotation slot eviction): build exactly those.
     new_map = ndt_map.build_touched(new_map, cfg.map, torch.cat([ids, state.prev_ids]))
+    og = state.og
+    if og is not None:
+        # Only this scan's cells, as the JAX step refreshes them: a cell
+        # rebuilt for last scan's ids alone keeps its stale block (ROADMAP R1).
+        og = occupancy.og_update_incremental(og, new_map, cfg.map, cfg.og, ids)
     new_state = SlamState(
-        map=new_map, align=astate, og=None, pose=pose, step=state.step + 1,
+        map=new_map, align=astate, og=og, pose=pose, step=state.step + 1,
         fitness=fitness, recoveries=state.recoveries, prev_ids=ids,
     )
     return new_state, pose, cost

@@ -3,9 +3,10 @@
 Port of the single-session part of ``ndtpso_slam_tpu/node.py``
 (``NDTPSONode``, ``src/ndtpso_slam_node.cpp``): scans come from a scan log
 (``.npz``) or any caller, poses go to registered callbacks, and the run's
-poses are written as ``<out>.pose.csv``.  Options the port cannot run yet
-(occupancy grid, recovery, sparse ring, GLIR, frontal-point decimation, the
-stencil patch) raise NotImplementedError naming their ROADMAP item.  Every
+poses are written as ``<out>.pose.csv``.  ``build_og`` (``--og``) keeps the
+occupancy raster in ``node.state.og``.  Options the port cannot run yet
+(recovery, sparse ring, GLIR, frontal-point decimation, the stencil patch)
+raise NotImplementedError naming their ROADMAP item.  Every
 cost mode of the JAX package runs (``models/slam.py:SLAM_COST_MODES``).
 
 Run over a log on the GPU::
@@ -251,6 +252,7 @@ def main(argv=None) -> int:
     ap.add_argument("--max-beams", type=int, default=None,
                     help="padded beam count (static shape)")
     ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--og", action="store_true", help="build the occupancy grid")
     ap.add_argument("--quiet", action="store_true")
     ap.add_argument("--device", default=cfgm.DEFAULT_DEVICE,
                     help="torch device (default cuda; cpu runs the plain path)")
@@ -265,6 +267,8 @@ def main(argv=None) -> int:
         max_beams=args.max_beams,
         seed=args.seed,
     )
+    if args.og:
+        overrides["build_og"] = True
     if args.config:
         node_cfg = NodeConfig.from_json(args.config, **overrides)
     else:

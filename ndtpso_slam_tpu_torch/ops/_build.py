@@ -118,6 +118,13 @@ CLUSTER_SIZES = (1, 2, 4, 8)
 STATIC_SMEM = 1024
 
 
+def slice_floats(population: int) -> int:
+    """Floats of one CTA's slice of a whole-solve kernel's global-route
+    scratch (csrc/pso_common.cuh: slice_floats): the particle state [10, P]
+    and the partial costs [P + 1]."""
+    return 11 * population + 1
+
+
 def choose_cluster(batch: int, smem_bytes: Callable[[int], int], smem_limit: int,
                    sm_count: int) -> int:
     """The cluster size C a whole-solve kernel runs each of ``batch`` solves

@@ -8,7 +8,10 @@ f32 | bf16, ``rng_mode`` threefry | native (turbo: Philox, see
 kernel runs one whole solve per thread-block cluster of C CTAs, each CTA
 binding and scoring its slice of the points (see the note at the top of the
 ``.cu`` file); :func:`smem_bytes` is one CTA's shared memory and
-``_build.choose_cluster`` picks C from it.  :func:`packed_frozen_cost` with
+``_build.choose_cluster`` picks C from it.  Populations up to
+:func:`max_population` keep the particle state in shared memory; larger
+ones take the kernel's global route, the state in a scratch buffer the
+wrapper allocates (``pso_rollout.LAST_ROUTE``).  :func:`packed_frozen_cost` with
 ``cluster=C`` sums the points in the kernel's order.
 
 :func:`pso_rollout` takes the plain version for tensors on the CPU and
@@ -49,31 +52,41 @@ _APPROX_BIAS = 127 * (1 << 23) - 366393
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ndt_rollout.argtypes = [vp] * 6 + [i] * 10 + [f] * 9 + [vp]
+    lib.ndt_rollout.argtypes = [vp] * 7 + [i] * 10 + [f] * 9 + [vp]
     lib.ndt_rollout.restype = i
-    lib.ndt_rollout_smem_bytes.argtypes = [i, i, i]
+    lib.ndt_rollout_smem_bytes.argtypes = [i, i, i, i]
     lib.ndt_rollout_smem_bytes.restype = ctypes.c_size_t
-    lib.ndt_rollout_max_active_clusters.argtypes = [i] * 3 + [ctypes.POINTER(i)]
+    lib.ndt_rollout_slice_floats.argtypes = [i]
+    lib.ndt_rollout_slice_floats.restype = ctypes.c_size_t
+    lib.ndt_rollout_max_active_clusters.argtypes = [i] * 4 + [ctypes.POINTER(i)]
     lib.ndt_rollout_max_active_clusters.restype = i
 
 
 LIB = _build.KernelLib("rollout", "rollout.cu", _bind)
 
 
-def smem_bytes(n_pts: int, population: int, cluster: int) -> int:
+def smem_bytes(n_pts: int, population: int, cluster: int, global_state: bool = False) -> int:
     """Dynamic shared memory of one CTA of the kernel (csrc/rollout.cu:
     smem_bytes): the w rows of its points [S, 16], S = ceil(N / cluster),
-    the particle state [10, P] and the partial costs [P + 1]."""
-    return 4 * (16 * -(-n_pts // cluster) + 11 * population + 1)
+    and on the shared route the particle state [10, P] and the partial
+    costs [P + 1]."""
+    state = 0 if global_state else _build.slice_floats(population)
+    return 4 * (16 * -(-n_pts // cluster) + state)
 
 
 def max_population(n_pts: int, smem_limit: int) -> int:
-    """The most particles one launch takes on N points, with ``smem_limit``
-    bytes of shared memory per CTA: every CTA of a cluster holds the whole
-    particle state, so only w's share shrinks with C, and C=8 is the most
-    room there is (5,189 particles at N=384 on an H100; 4,701 at C=1)."""
+    """The route threshold: the most particles whose state fits one CTA's
+    ``smem_limit`` bytes of shared memory on N points.  Every CTA of a
+    cluster holds the whole state, so only w's share shrinks with C, and C=8
+    is the most room there is (5,189 particles at N=384 on an H100; 4,701
+    at C=1).  Larger populations take the global route."""
     fixed = smem_bytes(n_pts, 0, _build.CLUSTER_SIZES[-1]) + _build.STATIC_SMEM
     return max(0, (smem_limit - fixed) // (4 * 11))
+
+
+def global_route(n_pts: int, population: int, smem_limit: int) -> bool:
+    """Whether a launch keeps the particle state in global scratch."""
+    return population > max_population(n_pts, smem_limit)
 
 
 def pack_rollout_inputs(nbr: cost_mod.NeighborhoodBind, points: torch.Tensor):
@@ -251,13 +264,12 @@ def _launch(keys, guesses, deviations, sten, pts, cfg, map_cfg, radius, score_dt
     if guesses.shape != (b, 3) or deviations.shape != (b, 3) or keys.shape != (b, 2):
         raise ValueError("keys, guesses and deviations must be [B, 2], [B, 3], [B, 3]")
     lib = _build.load(LIB)
-    most = max_population(n, _build.device_limits(dev.index)[0])
-    if cfg.population > most:
-        raise ValueError(
-            f"population {cfg.population} > {most}, the most one rollout launch takes at "
-            f"N={n}: each CTA keeps the whole particle state in shared memory"
-        )
-    c = _build.device_cluster(b, lambda c: smem_bytes(n, cfg.population, c), dev, cluster)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    glob = global_route(n, cfg.population, _build.device_limits(index)[0])
+    c = _build.device_cluster(b, lambda c: smem_bytes(n, cfg.population, c, glob), dev, cluster)
+    scratch = (torch.empty((b * c, _build.slice_floats(cfg.population)), dtype=torch.float32,
+                           device=dev)
+               if glob else None)
     sten, pts = sten.contiguous(), pts.contiguous()
     guesses = guesses.to(torch.float32).contiguous()
     deviations = deviations.to(torch.float32).contiguous()
@@ -269,6 +281,7 @@ def _launch(keys, guesses, deviations, sten, pts, cfg, map_cfg, radius, score_dt
         err = lib.ndt_rollout(
             keys32.data_ptr(), guesses.data_ptr(), deviations.data_ptr(),
             sten.data_ptr(), pts.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             b, n, cfg.population, cfg.iterations, radius, early_exit,
             int(rng_mode == "native"), int(score_dtype == "bf16"), EXP_MODES.index(exp_mode), c,
             map_cfg.half_size_m, map_cfg.cell_side_m,
@@ -278,6 +291,7 @@ def _launch(keys, guesses, deviations, sten, pts, cfg, map_cfg, radius, score_dt
     _build.check_launch(lib, err, "rollout")
     pso_rollout.LAUNCHES += 1
     pso_rollout.LAST_CLUSTER = c
+    pso_rollout.LAST_ROUTE = "global" if glob else "shared"
     return out[:, 0:3], out[:, 3]
 
 
@@ -309,7 +323,10 @@ def pso_rollout(
     cluster: CTAs per solve; None (every caller but the tests) lets
     ``_build.choose_cluster`` pick it.  A size the device refuses raises.
     On the CPU the plain version sums the points in that cluster's order
-    (one pass for None)."""
+    (one pass for None).
+
+    Any population: above :func:`max_population` the kernel keeps the
+    particle state in global scratch (``LAST_ROUTE`` "global")."""
     exp_mode = exp_mode or default_exp_mode(rng_mode)
     for name, value, allowed in (("score_dtype", score_dtype, SCORE_DTYPES),
                                  ("rng_mode", rng_mode, RNG_MODES),
@@ -327,6 +344,7 @@ def pso_rollout(
 
 pso_rollout.LAUNCHES = 0
 pso_rollout.LAST_CLUSTER = None
+pso_rollout.LAST_ROUTE = None
 
 
 def solve_rollout_mode(

@@ -9,7 +9,10 @@ Threefry branch with exact ``exp`` (``rollout_local``) and the turbo branch
 whole solve per thread-block cluster of C CTAs, each CTA scoring its slice
 of the points from its slice of the stencil table in shared memory (see the
 note at the top of the ``.cu`` file); :func:`smem_bytes` is one CTA's shared
-memory and ``_build.choose_cluster`` picks C from it.  The kernel sums each
+memory and ``_build.choose_cluster`` picks C from it.  Up to
+:data:`MAX_POPULATION` particles the state lives in registers; larger
+populations take the kernel's global route, the state in a scratch buffer
+the wrapper allocates (``pso_rollout_local.LAST_ROUTE``).  The kernel sums each
 cost over a CTA's points, then the CTAs' partials in rank order:
 :func:`packed_stencil_cost` with ``cluster=C`` is that order in plain
 PyTorch.
@@ -40,14 +43,19 @@ BIG = 1e9
 # exp(-q/2) == 2^(q * EXP2_SCALE): float32(-0.5 / ln 2), the turbo scoring.
 EXP2_SCALE = float(torch.tensor(-0.5 / math.log(2.0), dtype=torch.float32))
 EXP_MODES = ("exp", "exp2")
+# The register route's most particles (16 per thread of 512,
+# csrc/rollout_local.cu: kMaxPPT * kThreads); above it, the global route.
+MAX_POPULATION = 16 * 512
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ndt_rollout_local.argtypes = [vp] * 6 + [i] * 9 + [f] * 9 + [vp]
+    lib.ndt_rollout_local.argtypes = [vp] * 7 + [i] * 9 + [f] * 9 + [vp]
     lib.ndt_rollout_local.restype = i
     lib.ndt_rollout_local_smem_bytes.argtypes = [i, i, i, i]
     lib.ndt_rollout_local_smem_bytes.restype = ctypes.c_size_t
+    lib.ndt_rollout_local_slice_floats.argtypes = [i]
+    lib.ndt_rollout_local_slice_floats.restype = ctypes.c_size_t
     lib.ndt_rollout_local_max_population.argtypes = []
     lib.ndt_rollout_local_max_population.restype = i
     lib.ndt_rollout_local_max_active_clusters.argtypes = [i] * 4 + [ctypes.POINTER(i)]
@@ -57,15 +65,21 @@ def _bind(lib: ctypes.CDLL) -> None:
 LIB = _build.KernelLib("rollout_local", "rollout_local.cu", _bind)
 
 
+def global_route(population: int) -> bool:
+    """Whether a launch keeps the particle state in global scratch."""
+    return population > MAX_POPULATION
+
+
 def smem_bytes(n_pts: int, population: int, cluster: int,
                radius: int = cost_mod.DEFAULT_STENCIL_RADIUS) -> int:
     """Dynamic shared memory of one CTA of the kernel (csrc/rollout_local.cu:
     smem_bytes): its slice of the stencil table [K2, S, 8] (each lane padded
-    by 4 floats) and point columns [5, S], S = ceil(N / cluster), and the
-    partial costs [P + 1]."""
+    by 4 floats) and point columns [5, S], S = ceil(N / cluster), and on the
+    register route the partial costs [P + 1]."""
     s = -(-n_pts // cluster)
     k2 = (2 * radius + 1) ** 2
-    return 4 * ((k2 * 8 + 5) * s + 4 * k2 + population + 1)
+    part = 0 if global_route(population) else population + 1
+    return 4 * ((k2 * 8 + 5) * s + 4 * k2 + part)
 
 
 def rank_sliced_sum(s: torch.Tensor, cluster: int) -> torch.Tensor:
@@ -197,12 +211,11 @@ def _launch(keys, guesses, deviations, sten, pts, cfg, map_cfg, radius, early_ex
     if guesses.shape != (b, 3) or deviations.shape != (b, 3) or keys.shape != (b, 2):
         raise ValueError("keys, guesses and deviations must be [B, 2], [B, 3], [B, 3]")
     lib = _build.load(LIB)
-    if cfg.population > lib.ndt_rollout_local_max_population():
-        raise ValueError(
-            f"population {cfg.population} > {lib.ndt_rollout_local_max_population()}, "
-            "the most one rollout_local launch takes"
-        )
     c = _build.device_cluster(b, lambda c: smem_bytes(n, cfg.population, c, radius), dev, cluster)
+    glob = global_route(cfg.population)
+    scratch = (torch.empty((b * c, _build.slice_floats(cfg.population)), dtype=torch.float32,
+                           device=dev)
+               if glob else None)
     sten = sten.contiguous()
     if sten.data_ptr() % 16:
         raise ValueError("sten must be 16-byte aligned")
@@ -217,6 +230,7 @@ def _launch(keys, guesses, deviations, sten, pts, cfg, map_cfg, radius, early_ex
         err = lib.ndt_rollout_local(
             keys32.data_ptr(), guesses.data_ptr(), deviations.data_ptr(),
             sten.data_ptr(), pts.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             b, n, cfg.population, cfg.iterations, radius, early_exit,
             int(rng_mode == "native"), int(exp_mode == "exp2"), c,
             map_cfg.half_size_m, map_cfg.cell_side_m,
@@ -226,6 +240,7 @@ def _launch(keys, guesses, deviations, sten, pts, cfg, map_cfg, radius, early_ex
     _build.check_launch(lib, err, "rollout_local")
     pso_rollout_local.LAUNCHES += 1
     pso_rollout_local.LAST_CLUSTER = c
+    pso_rollout_local.LAST_ROUTE = "global" if glob else "registers"
     return out[:, 0:3], out[:, 3]
 
 
@@ -252,7 +267,10 @@ def pso_rollout_local(
     cluster: CTAs per solve; None (every caller but the tests) lets
     ``_build.choose_cluster`` pick it.  A size the device refuses raises.
     On the CPU the plain version sums the points in that cluster's order
-    (one pass for None)."""
+    (one pass for None).
+
+    Any population: above :data:`MAX_POPULATION` the kernel keeps the
+    particle state in global scratch (``LAST_ROUTE`` "global")."""
     if rng_mode not in ("threefry", "native"):
         raise ValueError(f"unknown rng_mode {rng_mode!r}; expected 'threefry' | 'native'")
     exp_mode = exp_mode or default_exp_mode(rng_mode)
@@ -271,3 +289,4 @@ def pso_rollout_local(
 
 pso_rollout_local.LAUNCHES = 0
 pso_rollout_local.LAST_CLUSTER = None
+pso_rollout_local.LAST_ROUTE = None

@@ -5,7 +5,9 @@ Port of ``fused_bound_scores`` / ``_score_kernel`` of
 ``ndtpso_slam_tpu/ops/pallas_score.py``: for every solve b and particle j,
 ``cost[b, j] = -Σₙ mask[b, n]·exp(-max(w[b, n]·φᵀ[b, :, j], 0)/2)``.  Any P
 and 15 or 16 features: the TPU kernel's padding to 16 features and its
-particle-tile divisibility rule are not needed here.
+particle-tile divisibility rule are not needed here.  The kernel scores a
+register tile of 4 particles per thread (see the note at the top of the
+``.cu`` file).
 
 :func:`fused_bound_scores` takes the plain version for tensors on the CPU and
 launches the kernel for tensors on a CUDA device; it never falls back from

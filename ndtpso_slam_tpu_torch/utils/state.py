@@ -3,8 +3,9 @@
 This system has no model weights: the map and the align bookkeeping are what
 a run carries from one scan to the next.  The dict is keyed by the JAX
 package's field paths (``map.mean_c``, ``map.slot_sum``, ``align.prev_pose``,
-``pose``, ``step``, ``prev_ids``, ...), so a state taken from either
-implementation can continue in the other.  Map arrays hold the real cells
+``pose``, ``step``, ``prev_ids``, ``og.og``, ``og.min_x``, ...), so a state
+taken from either implementation can continue in the other.  A state without
+an occupancy grid has no ``og.*`` keys.  Map arrays hold the real cells
 only; the port's spare scatter row (see ``models/ndt_map.py``) is added on
 the way in and dropped on the way out.
 """
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from ndtpso_slam_tpu_torch.config import SlamConfig, resolve_device
-from ndtpso_slam_tpu_torch.models import ndt_map
+from ndtpso_slam_tpu_torch.models import ndt_map, occupancy
 from ndtpso_slam_tpu_torch.models.slam import AlignState, SlamState
 
 # Map fields whose leading axis is the cell axis (they carry the spare row).
@@ -26,6 +27,7 @@ _PER_CELL = tuple(
     f.name for f in dataclasses.fields(ndt_map.NdtMapState)
     if f.name not in ("ring_map", "ring_used", "ring_overflow")
 )
+_OG_BOUNDS = ("min_x", "max_x", "min_y", "max_y")
 
 
 def snapshot_from_numpy(arrays: Dict[str, np.ndarray], device="cuda") -> ndt_map.MapSnapshot:
@@ -39,8 +41,7 @@ def snapshot_from_numpy(arrays: Dict[str, np.ndarray], device="cuda") -> ndt_map
 
 
 def slam_state_to_numpy(state: SlamState) -> Dict[str, np.ndarray]:
-    """The state as {JAX field path: numpy array}; ``og`` (always None in the
-    port) is left out."""
+    """The state as {JAX field path: numpy array}."""
     out = {}
     for f in dataclasses.fields(ndt_map.NdtMapState):
         v = getattr(state.map, f.name).cpu().numpy()
@@ -53,6 +54,10 @@ def slam_state_to_numpy(state: SlamState) -> Dict[str, np.ndarray]:
     out["fitness"] = state.fitness.cpu().numpy()
     out["recoveries"] = np.asarray(state.recoveries, np.int32)
     out["prev_ids"] = state.prev_ids.cpu().numpy()
+    if state.og is not None:
+        out["og.og"] = state.og.og.cpu().numpy()
+        for name in _OG_BOUNDS:
+            out[f"og.{name}"] = getattr(state.og, name).cpu().numpy()
     return out
 
 
@@ -74,13 +79,19 @@ def slam_state_from_numpy(
                 raise ValueError(f"map.{f.name} has {v.shape[0]} rows, config has {c} cells")
             v = torch.cat([v, torch.zeros_like(v[:1])])
         fields[f.name] = v
+    if ("og.og" in arrays) != cfg.og.enabled:
+        raise ValueError(f"the arrays {'carry' if 'og.og' in arrays else 'lack'} an occupancy "
+                         f"grid, the config has og.enabled={cfg.og.enabled}")
+    og = None
+    if cfg.og.enabled:
+        og = occupancy.grid_from_raster(t("og.og"), *(arrays[f"og.{k}"] for k in _OG_BOUNDS))
     return SlamState(
         map=ndt_map.NdtMapState(**fields),
         align=AlignState(
             prev_pose=t("align.prev_pose"), pose_diff=t("align.pose_diff"),
             iter=int(arrays["align.iter"]),
         ),
-        og=None,
+        og=og,
         pose=t("pose"),
         step=int(arrays["step"]),
         fitness=t("fitness"),

@@ -29,6 +29,7 @@ JAX, so run them there with
 ``python -m pytest --noconftest -m gpu tests/test_torch_batch.py``.
 """
 
+import dataclasses
 import time
 
 import numpy as np
@@ -365,14 +366,22 @@ def test_rollout_cluster_chooser_table(batch, n_pts, want):
 
 @pytest.mark.parametrize("n_pts,most", [(384, 5189), (1024, 5073), (100, 5240)])
 def test_rollout_max_population(n_pts, most):
-    """Every CTA of K2 holds the whole particle state in shared memory, so P
-    is bounded whatever C: the most that fits beside w's slice at C=8, where
-    the chooser still finds a size, and one more particle fits no size."""
+    """K2's route threshold: on the shared route every CTA holds the whole
+    particle state in shared memory, so the most particles is what fits
+    beside w's slice at C=8.  One more particle takes the global route,
+    whose CTA holds only w, so the chooser picks C by the batch alone, and
+    no population is refused."""
     assert tro.max_population(n_pts, H100_SMEM) == most
-    need = lambda p: (lambda c: tro.smem_bytes(n_pts, p, c))
-    assert _build.choose_cluster(16, need(most), H100_SMEM, H100_SMS) == 8
+    assert not tro.global_route(n_pts, most, H100_SMEM)
+    need = lambda p, glob: (lambda c: tro.smem_bytes(n_pts, p, c, glob))
+    assert _build.choose_cluster(16, need(most, False), H100_SMEM, H100_SMS) == 8
     with pytest.raises(ValueError, match="no cluster size"):
-        _build.choose_cluster(16, need(most + 1), H100_SMEM, H100_SMS)
+        _build.choose_cluster(16, need(most + 1, False), H100_SMEM, H100_SMS)
+    for p in (most + 1, 8192, 16384, 10**6):
+        assert tro.global_route(n_pts, p, H100_SMEM)
+        assert tro.smem_bytes(n_pts, p, 1, True) == 4 * 16 * n_pts
+        assert _build.choose_cluster(16, need(p, True), H100_SMEM, H100_SMS) == 8
+        assert _build.choose_cluster(256, need(p, True), H100_SMEM, H100_SMS) == 1
 
 
 def _frozen_inputs(world, n=None, seed=4):
@@ -534,8 +543,55 @@ def test_rollout_local_turbo_kernel_matches_plain_on_gpu(world, cuda_device, clu
 @pytest.mark.gpu
 def test_rollout_smem_matches_its_plain_formula_on_gpu(cuda_device):
     lib = _build.load(tro.LIB)
-    for n, p, c in ((100, 50, 8), (384, 4096, 1), (1024, 4096, 2), (5, 1, 4)):
-        assert lib.ndt_rollout_smem_bytes(n, p, c) == tro.smem_bytes(n, p, c)
+    for n, p, c in ((100, 50, 8), (384, 4096, 1), (1024, 4096, 2), (5, 1, 4), (384, 16384, 8)):
+        for glob in (False, True):
+            assert lib.ndt_rollout_smem_bytes(n, p, c, glob) == tro.smem_bytes(n, p, c, glob)
+        assert lib.ndt_rollout_slice_floats(p) == _build.slice_floats(p)
+
+
+def _args_384(world, dev, cfg, local=False):
+    """Kernel arguments for the world's B solves with their 200 points padded
+    to N=384 (the padding invalid), on dev."""
+    keys, guesses, devs, snaps, points, valid = _targs(world, device=dev)
+    points = torch.cat([points, points.new_zeros((B, 384 - N_PAD, 2))], dim=1)
+    valid = torch.cat([valid, valid.new_zeros((B, 384 - N_PAD))], dim=1)
+    nbr = tcost.bind_neighborhood(guesses, snaps, points, valid, TMAP)
+    pack = trl.pack_rollout_local_inputs if local else tro.pack_rollout_inputs
+    return (keys, guesses, devs, *pack(nbr, points), cfg, TMAP)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("population", [8192, 16384])
+@pytest.mark.parametrize("variant", [dict(), dict(score_dtype="bf16", rng_mode="native")])
+def test_rollout_large_population_on_gpu(world, cuda_device, population, variant):
+    """K2 above its shared-memory route (5,189 particles at N=384): the
+    state in global scratch, held to the plain version in the cluster's
+    order, N=384, B=3, I=10, on the chooser's C and on one CTA."""
+    cfg = tcfg.PSOConfig(iterations=10, population=population)
+    args = _args_384(world, cuda_device, cfg)
+    for cluster in (None, 1):
+        assert _check_rollout(args, cluster, **variant) == (cluster or 8)
+        assert tro.pso_rollout.LAST_ROUTE == "global"
+    shared = dataclasses.replace(cfg, population=tro.max_population(384, H100_SMEM))
+    _check_rollout(_args_384(world, cuda_device, shared))
+    assert tro.pso_rollout.LAST_ROUTE == "shared"
+
+
+@pytest.mark.gpu
+def test_rollout_local_large_population_on_gpu(world, cuda_device):
+    """K1 above its register route (16 particles per thread, 8,192): the
+    state in global scratch, P=16,384, N=384, B=3, I=10, held to the plain
+    version in the cluster's order, Threefry and turbo."""
+    cfg = tcfg.PSOConfig(iterations=10, population=16384)
+    args = _args_384(world, cuda_device, cfg, local=True)
+    for kw in (dict(), dict(rng_mode="native")):
+        kp, kc = trl.pso_rollout_local(*args, **kw)
+        synced()
+        assert trl.pso_rollout_local.LAST_ROUTE == "global"
+        rp, rc = trl.pso_rollout_local_reference(*args, **kw,
+                                                 cluster=trl.pso_rollout_local.LAST_CLUSTER)
+        np.testing.assert_allclose(kc.cpu().numpy(), rc.cpu().numpy(), rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(kp.cpu().numpy(), rp.cpu().numpy(), atol=1e-5)
 
 
 @pytest.mark.gpu

@@ -458,5 +458,8 @@ def test_kernel_takes_8192_particles_on_gpu(world, cuda_device):
 @pytest.mark.gpu
 def test_kernel_smem_matches_its_plain_formula_on_gpu(cuda_device):
     lib = _build.load(trl.LIB)
-    for n, p, c in ((100, 50, 8), (384, 4096, 2), (1024, 8192, 8), (5, 1, 4)):
+    for n, p, c in ((100, 50, 8), (384, 4096, 2), (1024, 8192, 8), (5, 1, 4), (384, 8193, 2),
+                    (384, 16384, 8)):
         assert lib.ndt_rollout_local_smem_bytes(n, p, c, 2) == trl.smem_bytes(n, p, c)
+        assert lib.ndt_rollout_local_slice_floats(p) == _build.slice_floats(p)
+    assert lib.ndt_rollout_local_max_population() == trl.MAX_POPULATION

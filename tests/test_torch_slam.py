@@ -44,13 +44,13 @@ BASE_KEY = (3, 9)
 TRAJ_ATOL = 5e-4
 
 
-def _cfgs(cost_mode):
+def _cfgs(cost_mode, og=False):
     """The JAX package's rollout_local SLAM test scale (tests/test_rollout.py)."""
     kw = lambda m: dict(
         pso=m.PSOConfig(iterations=25, population=50),
         map=m.MapConfig(size_m=36.0, cell_side_m=0.5, window_slots=4),
         scan=m.ScanConfig(max_beams=256),
-        og=m.OccupancyGridConfig(enabled=False),
+        og=m.OccupancyGridConfig(enabled=og),
         cost_mode=cost_mode,
     )
     return jcfg.SlamConfig(**kw(jcfg)), tcfg.SlamConfig(**kw(tcfg))
@@ -104,22 +104,37 @@ def _jax_state_to_numpy(state):
         out[f"align.{name}"] = np.asarray(getattr(state.align, name))
     for name in ("pose", "step", "fitness", "recoveries", "prev_ids"):
         out[name] = np.asarray(getattr(state, name))
+    if state.og is not None:
+        for f in dataclasses.fields(state.og):
+            out[f"og.{f.name}"] = np.asarray(getattr(state.og, f.name))
     return out
 
 
 def test_port_continues_jax_mid_run_state(log):
-    jc, tc = _cfgs("local_exact")
+    """A JAX state that carries an occupancy grid, taken mid-run, through
+    the port's state dict both ways, then continued by both packages."""
+    jc, tc = _cfgs("local_exact", og=True)
     jstate, _ = _jax_run(jslam.init_slam(jc, tuple(log.poses[0])), jc, log, range(5))
     arrays = _jax_state_to_numpy(jstate)
+    assert "og.og" in arrays and int(np.count_nonzero(arrays["og.og"])) > 0
     tstate = slam_state_from_numpy(arrays, tc, device="cpu")
     back = slam_state_to_numpy(tstate)
     assert set(back) == set(arrays)
     for k, v in arrays.items():
         np.testing.assert_array_equal(back[k], v, err_msg=k)
-    _, jp = _jax_run(jstate, jc, log, range(5, 8))
+    jstate, jp = _jax_run(jstate, jc, log, range(5, 8))
     tstate, tp = _port_run(tstate, tc, log, range(5, 8))
     np.testing.assert_allclose(tp, jp, atol=TRAJ_ATOL)
     assert tstate.step == 8
+    # The raster within 1 unit of the JAX package's (an exp ulp across an
+    # int8 truncation; tests/test_torch_occupancy.py), its bounds equal.
+    jog = _jax_state_to_numpy(jstate)
+    diff = np.abs(tstate.og.og.numpy().astype(int) - jog["og.og"].astype(int))
+    assert diff.max() <= 1 and (diff > 0).sum() <= 8, ((diff > 0).sum(), diff.max())
+    for name in ("min_x", "max_x", "min_y", "max_y"):
+        assert int(getattr(tstate.og, name)) == int(jog[f"og.{name}"]), name
+    with pytest.raises(ValueError, match="og.enabled"):
+        slam_state_from_numpy(arrays, _cfgs("local_exact")[1], device="cpu")
 
 
 def test_run_offline_equals_step_loop(log):
@@ -159,7 +174,8 @@ def test_node_run_log_tracks_and_writes_poses(log, tmp_path):
     assert len(lines) == 9 and len(lines[1].split(",")) == 7
 
 
-def test_node_cli_subprocess(log, tmp_path):
+def _cli(log, tmp_path, out, *extra):
+    """The node's CLI over the log on the CPU; returns the pose CSV's rows."""
     npz = tmp_path / "x.npz"
     np.savez(npz, ranges=log.ranges, poses=log.poses, odoms=log.odoms,
              timestamps=log.timestamps, angle_min=log.angle_min,
@@ -169,21 +185,50 @@ def test_node_cli_subprocess(log, tmp_path):
                                   "window_slots": 4}))
     cmd = [
         sys.executable, "-m", "ndtpso_slam_tpu_torch.node", "--device", "cpu",
-        "--scanlog", str(npz), "--config", str(launch), "--out", "run",
+        "--scanlog", str(npz), "--config", str(launch), "--out", out,
         "--cost-mode", "rollout_local",
         "--frame-size", "36", "--cell-side", "0.5", "--max-beams", "256",
-        "--iterations", "25", "--population", "50", "--seed", "5", "--quiet",
+        "--iterations", "25", "--population", "50", "--seed", "5", "--quiet", *extra,
     ]
     res = subprocess.run(cmd, cwd=tmp_path, capture_output=True, text=True, timeout=300,
                          env=dict(os.environ, PYTHONPATH=REPO))
     assert res.returncode == 0, res.stderr
-    lines = (tmp_path / "run.pose.csv").read_text().strip().split("\n")
+    lines = (tmp_path / f"{out}.pose.csv").read_text().strip().split("\n")
     assert len(lines) == 9
-    rows = np.array([[float(v) for v in line.split(",")] for line in lines[1:]])
+    return np.array([[float(v) for v in line.split(",")] for line in lines[1:]])
+
+
+def test_node_cli_subprocess(log, tmp_path):
+    rows = _cli(log, tmp_path, "run")
     np.testing.assert_allclose(rows[:, 0], log.timestamps, atol=1e-6)
     np.testing.assert_allclose(rows[:, 4:7], log.odoms, atol=1e-5)
     err = np.hypot(*(rows[:, 1:3] - log.poses[:, :2]).T)
     assert err.max() < 0.25, f"CLI tracking error {err.max():.3f}"
+    # --og builds the raster; the poses do not move.
+    np.testing.assert_array_equal(_cli(log, tmp_path, "run_og", "--og"), rows)
+
+
+def test_node_build_og_runs_and_leaves_poses(log):
+    """The node with build_og=True (the CLI's --og): the raster is built
+    every scan, matches the dense pass over the final map up to the blocks
+    R1 leaves stale, and the poses equal the run without it, bit for bit."""
+    from ndtpso_slam_tpu_torch.models import occupancy as tocc
+
+    runs = {}
+    for og in (False, True):
+        node = SlamNode(NodeConfig(**SMALL, init_pose=tuple(log.poses[0]), build_og=og,
+                                   cost_mode="rollout_local"), verbose=False, device="cpu")
+        runs[og] = (node, node.run_log(log))
+    (off, p_off), (on, p_on) = runs[False], runs[True]
+    assert off.state.og is None and on.state.og is not None
+    np.testing.assert_array_equal(p_on, p_off)
+    og = on.state.og
+    assert og.og.shape == (360, 360) and int(torch.count_nonzero(og.og)) > 100
+    assert 0 <= int(og.min_x) <= int(og.max_x) < 360 and 0 <= int(og.min_y) <= int(og.max_y) < 360
+    cfg = on.slam_cfg
+    dense = tocc.og_update(tocc.init_og(cfg.map, cfg.og, "cpu"), on.state.map, cfg.map, cfg.og)
+    stale = (dense.og != og.og).sum().item()
+    assert stale <= 0.05 * int(torch.count_nonzero(dense.og)), stale
 
 
 def test_import_leaves_jax_out():
@@ -214,7 +259,6 @@ def test_default_device_is_cuda_and_raises_without_gpu(log):
 
 
 @pytest.mark.parametrize("override,roadmap", [
-    (dict(build_og=True), "B1"),
     (dict(recovery=True), "B2"),
     (dict(optimizer="glir"), "B3"),
     (dict(ring_rows=64), "A5"),
