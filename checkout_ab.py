@@ -13,7 +13,8 @@ log, each on a new node; then K1 at B=1 on the next solve's inputs: its
 CUDA-event time, the host time of one wrapper call until it returns, and
 the wall time of a call and a synchronize), phase 5's
 batch world (K2 f32 and turbo with early exit 2 at B=256, K3 on one cost
-evaluation of its 256 solves; K2 bf16 and K1 turbo on its first 16 solves)
+evaluation of its 256 solves; K2 f32 and bf16 and K1 turbo on its first 16
+solves, at the cluster size the checkout's chooser picks)
 and E7's binding inputs at K2's shape
 (stages 1-3).  Kernel times are CUDA events (chip_smoke.py's
 ``_events_ms``); host times are medians of ``time.perf_counter``.  K3's
@@ -172,7 +173,7 @@ def measure(root: str, clusters: bool) -> dict:
     for _ in range(STEP_RUNS):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            node, lg, _ = cs.phase_main()
+            node, lg = cs.phase_main()[:2]
         m = re.search(r"([\d.]+) scans/s; aligned-step latency p50 ([\d.]+) ms p95 ([\d.]+) ms",
                       buf.getvalue())
         for key, x in zip(("scans_s", "step_p50_ms", "step_p95_ms"), m.groups()):
@@ -192,6 +193,7 @@ def measure(root: str, clusters: bool) -> dict:
     del ops
     small = cs._first(world, 16)
     ps, pl = cs._packed(small), cs._packed(small, local=True)
+    out["k2_f32_b16_ms"] = cs._events_ms(lambda: ro.pso_rollout(*ps), 3)
     out["k2_bf16_b16_ms"] = cs._events_ms(lambda: ro.pso_rollout(*ps, score_dtype="bf16"), 3)
     out["k1_turbo_b16_ms"] = cs._events_ms(lambda: rl.pso_rollout_local(*pl, rng_mode="native"), 3)
     del packed, ps, pl

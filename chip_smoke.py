@@ -11,8 +11,8 @@ Phases (any failure exits non-zero and prints no result line):
 
 K1 (csrc/rollout_local.cu) and K2 (csrc/rollout.cu) run one solve per
 thread-block cluster of C CTAs, C chosen by ops/_build.py:choose_cluster
-(8 at small batches); their kernels-line entries carry the C each ran with
-(`cluster`).
+(the fewest waves, then the largest C: 8 at B <= 15, 4 at B=16 on an H100);
+their kernels-line entries carry the C each ran with (`cluster`).
 2. Kernel against its plain PyTorch version: B=3 solves, N=384 points,
    P in {50, 200}, 10 iterations, on a small synthetic map.
 3. Kernel path against the plain path: 8 scans of SlamNode with
@@ -91,6 +91,26 @@ thread-block cluster of C CTAs, C chosen by ops/_build.py:choose_cluster
       inputs and on a flat landscape, and a witness printed: after 0-50
       steps, kernel against plain version and plain float32 against
       float64.
+7. Relocalization:
+   a. bench.py's multiswarm workload (bench.py:919-1009; the 5b map, K=16
+      hypotheses, P=4096, I=50, N=384): multi_swarm_rollout in f32 and
+      bf16 (one K2 launch at B=16) and multi_swarm_solve through the
+      scoring kernel (exchange every 5): bench.py's gate (< 0.1 m / 0.02
+      rad), relocalizations/s, the launches, and K2 against its plain
+      version on the call's inputs in its cluster's order, timed, with its
+      bound, its C and its waves;
+   b. the cluster chooser: K2 f32 and bf16 and K1 turbo at B=16, the
+      chosen C against C=8 (A B B A), and K1's B=1 host time through the
+      cached choice beside phase 4's step p50;
+   c. bench.py's recovery workload at --full-scale (bench.py:626-770): one
+      kidnapped scan at scan.launch scale with the default RecoveryConfig
+      and a rollout_local align: recoveries == 1 and bench.py's error gate
+      (< 0.3 m, 0.3 m, 0.1 rad) at bench.py's key, the launches, the same
+      step at seven other keys (reported, not gated: ROADMAP R5), the
+      event latency against one 10 Hz period, one event profiled, the peak
+      memory, the healthy step with recovery on and off (poses bit-equal),
+      and the scoring kernel on the event's last call against its plain
+      version and float64, timed.
 
 Each kernel's entry in the kernels line carries its bound: the larger of
 the bytes its function must move over the HBM rate and its operations
@@ -384,7 +404,7 @@ def phase_main():
           f"{len(lg.ranges) / total:.2f} scans/s; aligned-step latency "
           f"p50 {p50:.3f} ms p95 {p95:.3f} ms; "
           f"peak device memory {peak / 2**30:.3f} GiB; kernel launches {launches}")
-    return node, lg, launches
+    return node, lg, launches, p50
 
 
 # Phase 4's raster runs: off, on, on, off, off, on; the step p50/p95 of
@@ -519,7 +539,7 @@ def phase_main_kernel(node, lg):
           f"{dpose:.3e} max |dcost| {dcost:.3e}; kernel {ms:.4f} ms (one cluster of {cluster} "
           f"CTAs), plain {plain_ms:.3f} ms, "
           f"bound {bnd[0]:.6f} ms ({bnd[1]}; one solve, latency-bound)")
-    return max(dpose, dcost), ms, plain_ms, bnd, cluster
+    return max(dpose, dcost), ms, plain_ms, bnd, cluster, args
 
 
 def _evaluations(population, live_iterations):
@@ -1095,28 +1115,23 @@ def _clusters_held(name, n_pts, population):
     """{C: the most clusters of C CTAs the card holds at once}
     (cudaOccupancyMaxActiveClusters) for K1 (``rollout_local*``) or K2 at
     this shape, for every C whose CTA fits the shared memory."""
-    import ctypes
-
     import torch
 
     from ndtpso_slam_tpu_torch.ops import _build
     from ndtpso_slam_tpu_torch.ops import rollout as ro
     from ndtpso_slam_tpu_torch.ops import rollout_local as rl
 
+    dev = torch.device("cuda")
     limit = _build.device_limits(torch.cuda.current_device())[0]
     local = name.startswith("rollout_local")
-    lib = _build.load(rl.LIB if local else ro.LIB)
+    glob = not local and ro.global_route(n_pts, population, limit)
     held = {}
     for c in _build.CLUSTER_SIZES:
-        smem = rl.smem_bytes(n_pts, population, c) if local else ro.smem_bytes(n_pts, population, c)
-        if smem + _build.STATIC_SMEM > limit:
-            continue
-        out = ctypes.c_int(0)
-        err = (lib.ndt_rollout_local_max_active_clusters(n_pts, population, c, 2, ctypes.byref(out))
-               if local else lib.ndt_rollout_max_active_clusters(n_pts, population, c, 0,
-                                                                ctypes.byref(out)))
-        check(err == 0, f"{name}: cudaOccupancyMaxActiveClusters at C={c} failed ({err})")
-        held[c] = out.value
+        smem = (rl.smem_bytes(n_pts, population, c) if local
+                else ro.smem_bytes(n_pts, population, c, glob))
+        if smem + _build.STATIC_SMEM <= limit:
+            held[c] = (rl.clusters_held(n_pts, population, c, 2, dev) if local
+                       else ro.clusters_held(n_pts, population, c, glob, dev))
     return held
 
 
@@ -1784,6 +1799,399 @@ def phase_studies(k2_ms):
     return entries
 
 
+# Phase 7a: bench.py's multiswarm relocalization (bench.py:919-1009): K
+# hypotheses at the true pose + U(+-1.5)(1, 1, 0.1), deviation (0.6, 0.6,
+# 0.1), the island exchange every 5 iterations in multi_swarm_solve, and
+# bench.py:1009's gate.
+RELOC_K = 16
+RELOC_TRUE = (0.8, -0.5, 0.06)
+RELOC_DEV = (0.6, 0.6, 0.1)
+RELOC_EXCHANGE = 5
+RELOC_GATE_XY_M = 0.1
+RELOC_GATE_TH_RAD = 0.02
+# Phase 7c: bench.py's recovery workload at --full-scale (bench.py:626-770)
+# and its gates; the step's latency against one 10 Hz period.
+KIDNAP_OFFSET = (2.3, -1.8, 2.2)
+KIDNAP_KEY = (11, 13)
+KIDNAP_SWEEP = ((1, 2), (3, 4), (5, 6), (7, 8), (9, 10), (21, 9), (17, 18))
+KIDNAP_GATE = (0.3, 0.3, 0.1)
+PERIOD_MS = 100.0
+KIDNAP_REPS = 5
+
+
+def reloc_world(dev, iterations=50, population=4096):
+    """bench.py's multiswarm workload with its seeds, built with the port's
+    modules: a 64 m map of 1 m cells (4 slots) from three jittered scans of
+    make_world(seed=1, size=50, n_boxes=8) at the origin; the query scan
+    from RELOC_TRUE (360 beams padded to 384); RELOC_K keys and
+    hypotheses."""
+    import torch
+
+    from ndtpso_slam_tpu_torch import config as C
+    from ndtpso_slam_tpu_torch.io import synthetic
+    from ndtpso_slam_tpu_torch.models import ndt_map
+    from ndtpso_slam_tpu_torch.models import scan as scan_mod
+
+    map_cfg = C.MapConfig(size_m=64.0, cell_side_m=1.0, window_slots=4)
+    scan_cfg = C.ScanConfig(max_beams=384)
+    beams, amin, inc, rmax = 360, -np.pi, 2 * np.pi / 360, 30.0
+    rs = np.random.RandomState(0)
+    segs = synthetic.make_world(seed=1, size=50.0, n_boxes=8)
+    load = lambda pose: scan_mod.load_laser(
+        synthetic.raycast(segs, np.asarray(pose, np.float64), beams, amin, inc, rmax)
+        .astype(np.float32), amin, inc, rmax, scan_cfg, map_cfg, device=dev)
+    ref = load(np.zeros(3))
+    state = ndt_map.init_map(map_cfg, device=dev)
+    for _ in range(3):
+        jit_pts = ref.points.cpu().numpy() + rs.normal(0, 0.03, (384, 2))
+        ndt_map.add_points(state, map_cfg, torch.from_numpy(jit_pts.astype(np.float32)).to(dev),
+                           ref.valid)
+        ndt_map.build(state, map_cfg)
+    true = np.float32(RELOC_TRUE)
+    q = load(true)
+    keys = rs.randint(0, 2**31, (RELOC_K, 2)).astype(np.uint32).astype(np.int64)
+    hypo = true + rs.uniform(-1.5, 1.5, (RELOC_K, 3)).astype(np.float32) * np.float32([1, 1, 0.1])
+    return dict(map_cfg=map_cfg, pso_cfg=C.PSOConfig(iterations=iterations, population=population),
+                snap=ndt_map.snapshot(state, map_cfg), points=q.points, valid=q.valid, true=true,
+                keys=torch.from_numpy(keys).to(dev), hypo=torch.from_numpy(hypo).to(dev))
+
+
+def _reloc_gate(name, pose, true):
+    err = np.abs(pose.cpu().numpy().astype(np.float64) - true)
+    check(np.isfinite(err).all() and err[:2].max() < RELOC_GATE_XY_M and err[2] < RELOC_GATE_TH_RAD,
+          f"{name}: relocalization gate: err {err.round(4)}")
+    return err
+
+
+def _reloc_rate(run):
+    """Relocalizations/s under bench.py's protocol: one warm call, then REPS
+    enqueued and one synchronize."""
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [run() for _ in range(REPS)]
+    torch.cuda.synchronize()
+    del outs
+    return REPS / (time.perf_counter() - t0)
+
+
+def _reloc_packed(w, local=False):
+    """The kernel inputs of multi_swarm_rollout's B = K call: the stencil at
+    each hypothesis against the one shared snapshot."""
+    from ndtpso_slam_tpu_torch.models import cost
+    from ndtpso_slam_tpu_torch.ops import rollout as ro
+    from ndtpso_slam_tpu_torch.ops import rollout_local as rl
+
+    k = w["hypo"].shape[0]
+    points, valid = w["points"].expand(k, -1, -1), w["valid"].expand(k, -1)
+    nbr = cost.bind_neighborhood(w["hypo"], w["snap"], points, valid, w["map_cfg"])
+    pack = rl.pack_rollout_local_inputs if local else ro.pack_rollout_inputs
+    devs = w["hypo"].new_tensor(RELOC_DEV).expand(k, 3)
+    return (w["keys"], w["hypo"], devs, *pack(nbr, points), w["pso_cfg"], w["map_cfg"])
+
+
+def phase_reloc_c2(w):
+    """7a: multi_swarm_rollout (K2 at B = K, f32 and bf16) and
+    multi_swarm_solve (the matmul binder through K3, exchange every 5) at
+    bench.py's shape: the gate, relocalizations/s, the launches, and K2
+    against its plain version on the call's own inputs, timed, with its
+    bound, its C and its waves.  Returns K2's kernels-line entry."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.models import cost
+    from ndtpso_slam_tpu_torch.ops import _build
+    from ndtpso_slam_tpu_torch.ops import rollout as ro
+    from ndtpso_slam_tpu_torch.parallel import multi_swarm as ms
+
+    cfg, mc = w["pso_cfg"], w["map_cfg"]
+    k, dev = RELOC_K, w["hypo"].device
+    shape = f"K={k} P={cfg.population} I={cfg.iterations} N=384"
+    out = {}
+    for dtype in ("f32", "bf16"):
+        run = lambda: ms.multi_swarm_rollout(w["keys"], w["hypo"], RELOC_DEV, w["snap"],
+                                             w["points"], w["valid"], cfg, mc, score_dtype=dtype)
+        torch.cuda.synchronize()
+        _reset_counts()
+        res = run()
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        check(counts == {n: int(n == "rollout") for n in counts},
+              f"multi_swarm_rollout {dtype}: launches {counts}, expected one rollout")
+        err = _reloc_gate(f"multi_swarm_rollout {dtype}", res.pose, w["true"])
+        rate = _reloc_rate(run)
+        packed = _reloc_packed(w)
+        kw = dict(score_dtype=dtype)
+        kern = lambda: ro.pso_rollout(*packed, **kw)
+        got = kern()
+        torch.cuda.synchronize()
+        cluster = ro.pso_rollout.LAST_CLUSTER
+        plain = lambda: ro.pso_rollout_reference(*packed, **kw, cluster=cluster)
+        derr = max(_compare(f"multi_swarm_rollout {dtype}", got, plain(),
+                            *_TOLERANCES["rollout" if dtype == "f32" else "rollout_bf16"]))
+        ms_k = _events_ms(kern, 5)
+        plain_ms = _events_ms(plain, 1)
+        bnd = _rollout_bound(packed[3], packed[4], cfg.population, [cfg.iterations] * k, dtype)
+        held = _clusters_held("rollout", packed[4].shape[-1], cfg.population)
+        waves = _build.waves(k, held[cluster])
+        print(f"[phase 7a] multi_swarm_rollout {dtype} ({shape}, one K2 launch): err "
+              f"{err.round(4)} (gate {RELOC_GATE_XY_M} m / {RELOC_GATE_TH_RAD} rad); {rate:.1f} "
+              f"relocalizations/s; launches {counts}; K2 vs plain max abs err {derr:.3e}; kernel "
+              f"{ms_k:.4f} ms (cluster {cluster}, {waves} wave(s); clusters held by C: {held}), "
+              f"plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, "
+              f"{100 * bnd[0] / ms_k:.1f}% of it)")
+        out[dtype] = dict(launches=counts["rollout"], err=derr, ms=ms_k, plain_ms=plain_ms, bnd=bnd,
+                          cluster=cluster, waves=waves, relocalizations_s=rate)
+
+    tbl = cost.snapshot_table(w["snap"])
+    cost_fn = lambda poses, binds: cost.bound_cost_fused(
+        poses, cost.bind_points_matmul(binds, tbl, w["points"], w["valid"], mc))
+    run = lambda: ms.multi_swarm_solve(w["keys"], w["hypo"], RELOC_DEV, cost_fn, cfg,
+                                       exchange_every=RELOC_EXCHANGE)
+    torch.cuda.synchronize()
+    _reset_counts()
+    res = run()
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    want = {n: (cfg.iterations + 2 if n == "score" else 0) for n in counts}
+    check(counts == want, f"multi_swarm_solve: launches {counts}, expected {want}")
+    err = _reloc_gate("multi_swarm_solve", res.pose, w["true"])
+    rate = _reloc_rate(run)
+    print(f"[phase 7a] multi_swarm_solve, matmul binder, K3, exchange every {RELOC_EXCHANGE} "
+          f"({shape}): err {err.round(4)}; {rate:.1f} relocalizations/s; launches {counts}")
+    f32 = out["f32"]
+    return _entry("rollout_multiswarm", SRC + "rollout.cu", "ndtpso_slam_tpu/ops/pallas_rollout.py:111",
+                  f32["launches"], max(o["err"] for o in out.values()), f32["ms"], f32["plain_ms"],
+                  f32["bnd"], cluster=f32["cluster"], waves=f32["waves"],
+                  relocalizations_s=f32["relocalizations_s"],
+                  bf16={k: v for k, v in out["bf16"].items() if k != "bnd"}
+                  | dict(bound_ms=out["bf16"]["bnd"][0], bound_by=out["bf16"]["bnd"][1]))
+
+
+def _host_us(fn, reps=200):
+    """The host time of one call until it returns (µs), the card not awaited
+    (the wrapper's own work)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def phase_chooser(w, main_inputs, step_p50):
+    """7b: the cluster chooser at B = 16 against C = 8 on one card: K2 f32
+    and bf16 and K1 turbo on 7a's inputs, chosen C and C = 8 alternating
+    (A B B A); K1's B = 1 launch on phase 4's inputs, its host time through
+    the cached choice and with C = 8 forced."""
+    from ndtpso_slam_tpu_torch.ops import rollout as ro
+    from ndtpso_slam_tpu_torch.ops import rollout_local as rl
+
+    packed, lpacked = _reloc_packed(w), _reloc_packed(w, local=True)
+    rows = {}
+    for name, fn, args, kw in (("K2 f32", ro.pso_rollout, packed, {}),
+                               ("K2 bf16", ro.pso_rollout, packed, dict(score_dtype="bf16")),
+                               ("K1 turbo", rl.pso_rollout_local, lpacked, dict(rng_mode="native"))):
+        fn(*args, **kw)
+        chosen = fn.LAST_CLUSTER
+        times = {chosen: [], 8: []}
+        for c in (chosen, 8, 8, chosen):
+            times[c].append(_events_ms(lambda: fn(*args, **kw, cluster=c), 3))
+        rows[name] = (chosen, times)
+        print(f"[phase 7b] {name} B={RELOC_K} P={w['pso_cfg'].population} I="
+              f"{w['pso_cfg'].iterations}: chosen C={chosen} "
+              f"{', '.join(f'{t:.4f}' for t in times[chosen])} ms; C=8 "
+              f"{', '.join(f'{t:.4f}' for t in times[8])} ms "
+              f"({np.mean(times[8]) / np.mean(times[chosen]):.3f}x)")
+    run = lambda **kw: rl.pso_rollout_local(*main_inputs, **kw)
+    cached, forced = _host_us(run), _host_us(lambda: run(cluster=8))
+    print(f"[phase 7b] K1 B=1 (phase 4's next solve): host time per call {cached:.1f} us through "
+          f"the cached choice (C={rl.pso_rollout_local.LAST_CLUSTER}), {forced:.1f} us with C=8 "
+          f"forced; phase 4 step p50 {step_p50:.3f} ms")
+    return rows
+
+
+def reloc_launch_world(dev, window_slots=100):
+    """bench.py's recovery workload at --full-scale, built with the port:
+    the scan.launch frame (300 m, 0.5 m cells, window_slots slots), P=50,
+    I=30, 384 padded beams, cost_mode rollout_local, the default
+    RecoveryConfig; a map built at ground truth from the first 30 scans of
+    make_log(seed=3, n_scans=31, world_size=50), the state at poses[29];
+    the healthy scan from poses[30] and the kidnapped one from poses[30] +
+    KIDNAP_OFFSET.  As bench.py does, the scans and the map are made on the
+    host (whose scatter-adds run in a fixed order, where the card's
+    atomics would vary the map's last bits from run to run) and then moved
+    to ``dev``.  Returns (cfg, state, healthy, kidnapped, kidnap pose)."""
+    import torch
+
+    from ndtpso_slam_tpu_torch import config as C
+    from ndtpso_slam_tpu_torch.io import synthetic
+    from ndtpso_slam_tpu_torch.models import ndt_map, slam
+    from ndtpso_slam_tpu_torch.models import scan as scan_mod
+    from ndtpso_slam_tpu_torch.ops.geometry import cell_index, transform_points
+    from ndtpso_slam_tpu_torch.utils.state import slam_state_from_numpy, slam_state_to_numpy
+
+    cfg = C.SlamConfig(pso=C.PSOConfig(iterations=30, population=50),
+                       map=C.MapConfig(size_m=300.0, cell_side_m=0.5, window_slots=window_slots),
+                       scan=C.ScanConfig(max_beams=384), cost_mode="rollout_local",
+                       recovery=C.RecoveryConfig(enabled=True))
+    mc, host = cfg.map, torch.device("cpu")
+    lg = synthetic.make_log(seed=3, n_scans=31, n_beams=360, world_size=50.0)
+    load = lambda r: scan_mod.load_laser(r, lg.angle_min, lg.angle_increment, lg.range_max,
+                                         cfg.scan, mc, device=host)
+    loaded = [load(r) for r in lg.ranges]
+    st = slam.init_slam(cfg, tuple(lg.poses[0]), host)
+    prev_ids = st.prev_ids
+    for s, pose in zip(loaded[:30], lg.poses[:30]):
+        wpts = transform_points(s.points, torch.tensor(pose, dtype=torch.float32))
+        idx, inb = cell_index(wpts, size_m=mc.size_m, cell_side_m=mc.cell_side_m,
+                              cells_per_side=mc.cells_per_side)
+        ids = torch.where(s.valid & inb, idx, mc.num_cells).to(torch.int32)
+        ndt_map.add_points(st.map, mc, wpts, s.valid)
+        ndt_map.build_touched(st.map, mc, torch.cat([ids, prev_ids]))
+        prev_ids = ids
+    pose = torch.tensor(lg.poses[29], dtype=torch.float32)
+    st.prev_ids, st.pose, st.step = prev_ids, pose, 30
+    st.align = slam.AlignState(prev_pose=pose.clone(), iter=30, pose_diff=torch.tensor(
+        lg.poses[29] - lg.poses[28], dtype=torch.float32))
+    kid_pose = lg.poses[30] + np.float64(KIDNAP_OFFSET)
+    kid = synthetic.raycast(synthetic.make_world(seed=3, size=50.0), kid_pose, 360, lg.angle_min,
+                            lg.angle_increment, lg.range_max)
+    to = lambda s: scan_mod.Scan(points=s.points.to(dev), valid=s.valid.to(dev))
+    st = slam_state_from_numpy(slam_state_to_numpy(st), cfg, device=dev)
+    return cfg, st, to(loaded[30]), to(load(kid.astype(np.float32))), kid_pose
+
+
+def _kidnap_err(pose, kid_pose):
+    """|pose - truth| with the angle wrapped to [0, π]."""
+    err = np.abs(pose.cpu().numpy().astype(np.float64) - kid_pose)
+    err[2] = abs((err[2] + np.pi) % (2 * np.pi) - np.pi)
+    return err
+
+
+def _fresh(st):
+    """A copy of a SLAM state whose map the next step may update in place."""
+    import copy
+    import dataclasses
+
+    from ndtpso_slam_tpu_torch.models import ndt_map
+
+    out = copy.copy(st)
+    out.map = ndt_map.NdtMapState(**{f.name: getattr(st.map, f.name).clone()
+                                     for f in dataclasses.fields(st.map)})
+    return out
+
+
+def _step_ms(st, scan, cfg, reps=KIDNAP_REPS):
+    """slam_step on fresh copies of st: (the last result, the median ms of
+    reps steps, each from its call to the card's end)."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.models import slam
+
+    times, res = [], None
+    for _ in range(reps):
+        s = _fresh(st)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = slam.slam_step(s, scan, KIDNAP_KEY, cfg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return res, float(np.median(times))
+
+
+def phase_recovery(dev, window_slots=100):
+    """7c: the kidnapped step at scan.launch scale: recoveries == 1 and
+    bench.py's error gate at bench.py's key, the launches (K1 once in the
+    align, K3 in each of stages 2-3's evaluations), the step at the
+    KIDNAP_SWEEP keys (reported), the event latency against one 10 Hz
+    period, one event profiled, the peak device memory, and the healthy
+    step with recovery on against off (poses bit-equal); then K3 on the
+    operands of the event's last scoring call against its plain version
+    and float64, timed.  Returns K3's kernels-line entry."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+
+    from ndtpso_slam_tpu_torch import config as C
+    from ndtpso_slam_tpu_torch.models import cost, slam
+    from ndtpso_slam_tpu_torch.ops import score as sc
+
+    cfg, st, healthy, kidnapped, kid_pose = reloc_launch_world(dev, window_slots)
+    rc = cfg.recovery
+    s = _fresh(st)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    new, pose, _ = slam.slam_step(s, kidnapped, KIDNAP_KEY, cfg)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    evals = 2 * (rc.pso.iterations + 2)
+    want = {n: {"rollout_local": 1, "score": evals}.get(n, 0) for n in counts}
+    check(counts == want, f"kidnapped step: launches {counts}, expected {want}")
+    err = _kidnap_err(pose, kid_pose)
+    check(new.recoveries == 1 and all(e < g for e, g in zip(err, KIDNAP_GATE)),
+          f"kidnapped step: recoveries {new.recoveries}, err {err.round(4)}")
+    # The same step at other keys: reported, not gated (ROADMAP R5).
+    sweep = []
+    for key in KIDNAP_SWEEP:
+        new_k, pose_k, _ = slam.slam_step(_fresh(st), kidnapped, key, cfg)
+        err_k = _kidnap_err(pose_k, kid_pose)
+        sweep.append((key, new_k.recoveries, all(e < g for e, g in zip(err_k, KIDNAP_GATE)),
+                      float(err_k[:2].max())))
+    _, event_ms = _step_ms(st, kidnapped, cfg)
+    s = _fresh(st)
+    n_kern, busy_ms, wall_ms = _profile(lambda: slam.slam_step(s, kidnapped, KIDNAP_KEY, cfg))
+    off_cfg = dataclasses.replace(cfg, recovery=C.RecoveryConfig())
+    (h_on, p_on, _), on_ms = _step_ms(st, healthy, cfg)
+    (h_off, p_off, _), off_ms = _step_ms(st, healthy, off_cfg)
+    check(h_on.recoveries == 0 and torch.equal(p_on, p_off),
+          f"healthy step: recoveries {h_on.recoveries}, recovery on/off poses {p_on} {p_off}")
+    print(f"[phase 7c] kidnapped step (300 m / 0.5 m / {window_slots} slots, grid {rc.grid}, "
+          f"K={rc.k_hypotheses}, window {rc.patch_cells}, rollout_local align): recoveries 1, err "
+          f"{err.round(4)} (gate {KIDNAP_GATE}); launches {counts}; event latency {event_ms:.3f} ms "
+          f"(median of {KIDNAP_REPS}; {'within' if event_ms < PERIOD_MS else 'OVER'} the "
+          f"{PERIOD_MS:.0f} ms period); one event under torch.profiler: {n_kern} device kernels, "
+          f"busy {busy_ms:.3f} of {wall_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%); "
+          f"peak device memory {peak / 2**20:.1f} MiB above the "
+          f"state; healthy step {on_ms:.3f} ms with recovery on, {off_ms:.3f} ms off "
+          f"({100 * (on_ms - off_ms) / off_ms:+.1f}%), poses bit-equal")
+    print(f"[phase 7c] the kidnapped step at {len(sweep)} other keys: "
+          f"{sum(ok for *_, ok, _ in sweep)} within the gate, all recovered: "
+          f"{all(r == 1 for _, r, _, _ in sweep)}; (key, recoveries, within, max xy err m): "
+          f"{[(k, r, ok, round(e, 4)) for k, r, ok, e in sweep]}")
+
+    # K3 on the operands of the event's last scoring call.
+    seen, real = [], cost.fused_bound_scores
+
+    def recording(*ops):
+        seen.append(tuple(t.clone() for t in ops))
+        return real(*ops)
+
+    with mock.patch.object(cost, "fused_bound_scores", recording):
+        slam.slam_step(_fresh(st), kidnapped, KIDNAP_KEY, cfg)
+    ops = seen[-1]
+    b, f, p = ops[0].shape
+    derr = _check_score(ops, "7c", f"B={b} N={ops[1].shape[1]} P={p}, the event's last call")
+    ms_k = _events_ms(lambda: sc.fused_bound_scores(*ops), 50)
+    plain_ms = _events_ms(lambda: sc.fused_bound_scores_reference(*ops), 20)
+    bnd = _score_bound(ops)
+    print(f"[phase 7c] K3 in recovery: kernel {ms_k:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bnd[0]:.6f} ms ({bnd[1]}, {100 * bnd[0] / ms_k:.1f}% of it); {counts['score']} "
+          f"launches per event")
+    return _entry("score_recovery", SRC + "score.cu", "ndtpso_slam_tpu/ops/pallas_score.py:41",
+                  counts["score"], derr, ms_k, plain_ms, bnd, event_ms=event_ms,
+                  peak_mib=peak / 2**20)
+
+
 def main() -> int:
     import torch
 
@@ -1796,9 +2204,9 @@ def main() -> int:
     phase_device()
     worst = phase_kernel()
     phase_paths()
-    node, lg, launches = phase_main()
+    node, lg, launches, step_p50 = phase_main()
     phase_main_og(node, lg)
-    worst_main, ms, plain_ms, bnd, cluster = phase_main_kernel(node, lg)
+    worst_main, ms, plain_ms, bnd, cluster, main_inputs = phase_main_kernel(node, lg)
     phase_main_profile(node, lg)
     world = batch_world(BATCH, torch.device("cuda"))
     worst_small = phase_batch_kernels(world)
@@ -1826,6 +2234,13 @@ def main() -> int:
         kernels.append(_entry(name, SRC + source, tpu + replaces, n_launch,
                               max(worst_small[name], wide_err), k_ms, p_ms, k_bnd, **extra))
     kernels.extend(phase_studies(timed["rollout"][1]))
+    t0 = time.perf_counter()
+    reloc = reloc_world(torch.device("cuda"))
+    kernels.append(phase_reloc_c2(reloc))
+    phase_chooser(reloc, main_inputs, step_p50)
+    del reloc
+    kernels.append(phase_recovery(torch.device("cuda")))
+    print(f"[phase 7] wall {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -128,9 +128,18 @@ RECOVERY_AUTO_STRIDE_MIN_CELLS = 65536
 
 @dataclasses.dataclass(frozen=True)
 class RecoveryConfig:
-    """Tracking-loss detection and relocalization.  Same fields and defaults
-    as the JAX package; the port has no recovery yet (ROADMAP B2), so
-    ``enabled=True`` raises in ``slam_step``."""
+    """Tracking-loss detection and relocalization (``models/slam.py``).  Same
+    fields and defaults as the JAX package: off by default; a scan's match
+    fitness (mean exact NDT score per valid beam) below ``fitness_threshold``
+    triggers the K-hypothesis relocalization around the last trusted pose,
+    whose pose is adopted only if it beats the failed align and its fitness
+    lies in [``accept_fitness``, 1]; a scan with fewer than
+    ``min_valid_beams`` valid beams dead-reckons and is not ingested.
+    ``grid_beam_stride`` 0 is auto: 2 at ``RECOVERY_AUTO_STRIDE_MIN_CELLS``
+    map cells or more, else 1.  ``patch_cells`` is the side of the binder's
+    window around the last pose (0, or at least the grid's side: the whole
+    table).  ``exchange_every`` is kept for configuration parity: the
+    relocalization's swarms run independently, as in the JAX package."""
 
     enabled: bool = False
     fitness_threshold: float = 0.15

@@ -212,11 +212,13 @@ def _quadform_bound(
     la, lb, lc = icov[..., 0:1], icov[..., 1:2], icov[..., 2:3]
     lbx = la * bx + lb * by  # Λ @ B rows
     lby = lb * bx + lc * by
-    cols = []
-    for a, b in _IJ:
-        m_ab = bx[..., a] * lbx[..., b] + by[..., a] * lby[..., b]
-        cols.append(m_ab if a == b else 2.0 * m_ab)
-    w = torch.stack(cols, dim=-1)  # [..., N, 15]
+    # Every M_ab = bx_a·lbx_b + by_a·lby_b at once, then the pairs a <= b in
+    # _IJ's order: the same roundings as one pair at a time, in a few
+    # launches instead of 75.
+    m = bx[..., :, None] * lbx[..., None, :] + by[..., :, None] * lby[..., None, :]
+    m2 = 2.0 * m
+    w = torch.cat([t for a in range(5) for t in (m[..., a, a:a + 1], m2[..., a, a + 1:])],
+                  dim=-1)  # [..., N, 15]
     # Zeroing w where masked keeps exp() arguments finite even where Λ was
     # inf/NaN in a degenerate cell.
     w = torch.where(mask[..., None] > 0, w, torch.zeros((), dtype=w.dtype, device=w.device))
@@ -266,6 +268,53 @@ def bind_points_matmul(
     return _quadform_bound(bind_pose, points, g[..., 0:2], g[..., 2:5], mask)
 
 
+def window_origin(pose: torch.Tensor, ps: int, cfg: MapConfig):
+    """(ox, oy): the corner cell of the ``ps`` x ``ps`` window centred on
+    ``pose``'s cell, clipped so the window lies inside the grid."""
+    cx, cy, _ = cell_coords(pose[:2], size_m=cfg.size_m, cell_side_m=cfg.cell_side_m)
+    hi = cfg.cells_per_side - ps
+    return (cx - ps // 2).clamp(0, hi), (cy - ps // 2).clamp(0, hi)
+
+
+def table_window(tbl: torch.Tensor, origin, ps: int, cfg: MapConfig) -> torch.Tensor:
+    """The ``ps`` x ``ps`` window of a [C, 6] table at cell corner
+    ``origin`` = (ox, oy), as a [ps·ps, 6] table (row-major, like the grid)."""
+    w = cfg.cells_per_side
+    ox, oy = origin
+    rows = oy + torch.arange(ps, device=tbl.device)
+    cols = ox + torch.arange(ps, device=tbl.device)
+    return tbl.view(w, w, -1)[rows[:, None], cols[None, :]].reshape(ps * ps, -1)
+
+
+def bind_points_matmul_window(
+    bind_pose: torch.Tensor,
+    patch_tbl: torch.Tensor,  # [ps·ps, 6] from table_window
+    origin,  # (ox, oy) cell corner of the window
+    ps: int,
+    points: torch.Tensor,
+    valid: torch.Tensor,
+    cfg: MapConfig,
+) -> BoundScan:
+    """:func:`bind_points_matmul` against a ``ps`` x ``ps`` window of the map.
+    Points are binned in global cell coordinates and shifted by the window's
+    origin, so the rows selected inside it are the full table's; a point
+    outside the window (or outside the map) is masked and scores 0, as one
+    leaving the map.  The JAX package selects the row with a one-hot matmul
+    (a zero row outside the window); here it is a gather of the clipped row,
+    and ``_quadform_bound`` zeroes w under the mask, so the result is the
+    same and a NaN in a masked lane cannot leak."""
+    ox, oy = origin
+    q0 = transform_points(points, bind_pose)
+    ix, iy, inb = cell_coords(q0, size_m=cfg.size_m, cell_side_m=cfg.cell_side_m)
+    lx = ix - ox
+    ly = iy - oy
+    in_patch = (lx >= 0) & (lx < ps) & (ly >= 0) & (ly < ps)
+    li = torch.where(in_patch, ly * ps + lx, 0).long()
+    g = patch_tbl[li]  # [..., N, 6]
+    mask = ((g[..., 5] > 0.5) & inb & valid & in_patch).to(points.dtype)
+    return _quadform_bound(bind_pose, points, g[..., 0:2], g[..., 2:5], mask)
+
+
 def bind_points_local(
     bind_pose: torch.Tensor,
     nbr: NeighborhoodBind,
@@ -310,14 +359,16 @@ def pose_features(poses: torch.Tensor, bind_pose: torch.Tensor) -> torch.Tensor:
     """φ(u) monomials u_a·u_b (a <= b): poses [..., P, 3] relative to
     bind_pose [..., 3] -> [..., P, 15]."""
     u = _u(poses, bind_pose, -1)
-    return torch.stack([u[..., a] * u[..., b] for a, b in _IJ], dim=-1)
+    uu = u[..., :, None] * u[..., None, :]  # [..., P, 5, 5]
+    return torch.cat([uu[..., a, a:] for a in range(5)], dim=-1)  # pairs in _IJ's order
 
 
 def pose_features_t(poses: torch.Tensor, bind_pose: torch.Tensor) -> torch.Tensor:
     """φ(u) monomials, feature-major: [..., P, 3] -> [..., 15, P] (the fused
     scoring kernel's operand)."""
     u = _u(poses, bind_pose, -2)
-    return torch.stack([u[..., a, :] * u[..., b, :] for a, b in _IJ], dim=-2)
+    uu = u[..., :, None, :] * u[..., None, :, :]  # [..., 5, 5, P]
+    return torch.cat([uu[..., a, a:, :] for a in range(5)], dim=-2)  # pairs in _IJ's order
 
 
 def bound_cost(poses: torch.Tensor, bound: BoundScan) -> torch.Tensor:

@@ -133,8 +133,10 @@ def add_points(
     state.cur_sum.index_add_(0, sidx, centred)
     state.cur_count.index_add_(0, sidx, mask.to(torch.int32))
     state.cur_m2.index_add_(0, sidx, m2)
-    state.created[sidx] = True
-    state.built[sidx] = False
+    # index_fill_ takes the value as a scalar: an indexed assignment of a
+    # Python bool would copy it to the device and wait for the stream.
+    state.created.index_fill_(0, sidx, True)
+    state.built.index_fill_(0, sidx, False)
     return state
 
 
@@ -281,3 +283,22 @@ def snapshot(state: NdtMapState, cfg: MapConfig) -> MapSnapshot:
         mean=centers + state.mean_c[:c], inv_cov=state.inv_cov[:c],
         built=state.built[:c],
     )
+
+
+def smooth_snapshot(snap: MapSnapshot, sigma: float) -> MapSnapshot:
+    """Covariance-inflated snapshot for coarse-to-fine matching: every cell's
+    Σ' = Σ + σ²I, recomputed from the packed inverse in closed 2x2 form
+    (Σ = adj(Λ)/det(Λ)), in the JAX package's operation order.  A cell whose
+    inverse has det <= 1e-20 is marked unbuilt, so the wide basins come only
+    from cells with a usable Gaussian."""
+    a, b, c = snap.inv_cov[..., 0], snap.inv_cov[..., 1], snap.inv_cov[..., 2]
+    det = a * c - b * b  # det of Λ = 1/det(Σ)
+    ok = det > 1e-20
+    safe = torch.where(ok, det, torch.ones((), dtype=det.dtype, device=det.device))
+    s2 = torch.tensor(sigma * sigma, dtype=snap.inv_cov.dtype).item()
+    ca = c / safe + s2
+    cb = -b / safe
+    cc = a / safe + s2
+    d2 = ca * cc - cb * cb
+    icov = torch.stack([cc / d2, -cb / d2, ca / d2], dim=-1)
+    return MapSnapshot(mean=snap.mean, inv_cov=icov, built=snap.built & ok)

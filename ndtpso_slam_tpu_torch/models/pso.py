@@ -138,31 +138,45 @@ def pso_solve(
     return PsoResult(pose=gbest, cost=gbest_cost)
 
 
-def _batch_draws(keys: torch.Tensor, i, population: int, dtype, device, rng_mode):
+def _batch_draws(keys: torch.Tensor, i, population: int, dtype, device, rng_mode, count=None):
     """Draws of B solves at once: (u_gbest [B, 3], u_pop [B, P, 3]) for
-    ``i is None``, else iteration i's (r1, r2), each [B, P, 3]; the same
-    values :func:`pso_draws` gives each solve."""
+    ``i is None``, else iteration i's (r1, r2), each [B, P, 3], or with
+    ``count`` those of iterations i .. i + count - 1, each [B, count, P, 3];
+    the same values :func:`pso_draws` gives each solve."""
+    if i is not None and count is None:
+        return tuple(r[:, 0] for r in _batch_draws(keys, i, population, dtype, device,
+                                                   rng_mode, 1))
     k0, k1 = keys[:, 0], keys[:, 1]
     if rng_mode == "native":
-        kb = (k0[:, None], k1[:, None])
         j = torch.arange(population, dtype=torch.int64, device=device)
         if i is None:
+            kb = (k0[:, None], k1[:, None])
             return (
                 rng.philox_uniforms((k0, k1), torch.zeros_like(k0), 0, rng.PHILOX_SEED, dtype),
                 rng.philox_uniforms(kb, j, 0, rng.PHILOX_INIT, dtype),
             )
+        kb = (k0[:, None, None], k1[:, None, None])
+        steps = torch.arange(i + 1, i + 1 + count, dtype=torch.int64, device=device)[:, None]
         return (
-            rng.philox_uniforms(kb, j, i + 1, rng.PHILOX_R1, dtype),
-            rng.philox_uniforms(kb, j, i + 1, rng.PHILOX_R2, dtype),
+            rng.philox_uniforms(kb, j, steps, rng.PHILOX_R1, dtype),
+            rng.philox_uniforms(kb, j, steps, rng.PHILOX_R2, dtype),
         )
-    kb = (k0[:, None, None], k1[:, None, None])
     if i is None:
+        kb = (k0[:, None, None], k1[:, None, None])
         g_ctr, p_ctr = rng.pso_init_pairs(population, device)
         return (
             rng.uniform_pairs((k0[:, None], k1[:, None]), g_ctr, dtype)[0],
             rng.uniform_pairs(kb, p_ctr, dtype)[0],
         )
-    return rng.uniform_pairs(kb, rng.pso_iter_pairs(i, population, device), dtype)
+    kb = (k0[:, None, None, None], k1[:, None, None, None])
+    return rng.uniform_pairs(kb, rng.pso_iter_pairs(i, population, device, count), dtype)
+
+
+# pso_solve_batch draws the uniforms of as many iterations at once as keep
+# the draw block [B, iterations, P, 3] within this many elements: one
+# Threefry pass of ~140 small tensor ops serves them all, where the step is
+# host-bound on launches (~100 MiB of int64 temporaries at most).
+DRAW_BLOCK_ELEMS = 1 << 21
 
 
 def pso_solve_batch(
@@ -173,6 +187,7 @@ def pso_solve_batch(
     cfg: PSOConfig,
     rng_mode: str = "threefry",
     early_exit: int = 0,
+    exchange_every: int = 0,
 ) -> PsoResult:
     """B independent solves with an explicit batch axis.
 
@@ -181,8 +196,14 @@ def pso_solve_batch(
     pose block at once, which is what lets the fused scoring kernel run one
     grid over (solves, particle tiles).  With ``early_exit`` each solve stops
     on its own: a solve whose best has stalled that many iterations keeps its
-    state while the others go on.  Returns pose [B, 3], cost [B]."""
+    state while the others go on.  With ``exchange_every`` = e > 0 the solves
+    are the islands of one multi-swarm search (``parallel/multi_swarm.py``):
+    after the global-best update of iteration i, when (i + 1) % e == 0, every
+    solve adopts the best incumbent of the batch (first minimum), while the
+    personal bests stay local.  Returns pose [B, 3], cost [B]."""
     _check_rng_mode(rng_mode)
+    if early_exit > 0 and exchange_every > 0:
+        raise ValueError("early_exit and exchange_every cannot be combined")
     dtype, dev = guesses.dtype, guesses.device
     p = cfg.population
     keys = keys.to(device=dev, dtype=torch.int64) & 0xFFFFFFFF
@@ -202,12 +223,16 @@ def pso_solve_batch(
     pbest, pbest_cost = pos, cost
     w = torch.tensor(cfg.w, dtype=dtype, device=dev)
     stale = torch.zeros(guesses.shape[0], dtype=torch.int32, device=dev)
+    block = max(1, DRAW_BLOCK_ELEMS // (guesses.shape[0] * p * 3))
     for i in range(cfg.iterations):
         if early_exit > 0:
             live = stale < early_exit
             if not bool(live.any()):
                 break
-        r1, r2 = _batch_draws(keys, i, p, dtype, dev, rng_mode)
+        if i % block == 0:
+            r1s, r2s = _batch_draws(keys, i, p, dtype, dev, rng_mode,
+                                    min(block, cfg.iterations - i))
+        r1, r2 = r1s[:, i % block], r2s[:, i % block]
         n_vel = w * vel + cfg.c1 * r1 * (pbest - pos) + cfg.c2 * r2 * (gbest[:, None, :] - pos)
         n_pos = pos + n_vel
         cost = cost_fn(n_pos, gbest)
@@ -218,6 +243,9 @@ def pso_solve_batch(
         gimp = bc < gbest_cost
         n_gbest = torch.where(gimp[:, None], bp, gbest)
         n_gbest_cost = torch.where(gimp, bc, gbest_cost)
+        if exchange_every > 0 and (i + 1) % exchange_every == 0:
+            mc, mp = _select_min(n_gbest_cost, n_gbest)
+            n_gbest, n_gbest_cost = mp.expand_as(n_gbest), mc.expand_as(n_gbest_cost)
         new = (n_pos, n_vel, n_pbest, n_pbest_cost, n_gbest, n_gbest_cost)
         if early_exit > 0:
             # Stalled solves keep their state: the same as leaving the loop.

@@ -4,9 +4,10 @@ Port of the single-session part of ``ndtpso_slam_tpu/node.py``
 (``NDTPSONode``, ``src/ndtpso_slam_node.cpp``): scans come from a scan log
 (``.npz``) or any caller, poses go to registered callbacks, and the run's
 poses are written as ``<out>.pose.csv``.  ``build_og`` (``--og``) keeps the
-occupancy raster in ``node.state.og``.  Options the port cannot run yet
-(recovery, sparse ring, GLIR, frontal-point decimation, the stencil patch)
-raise NotImplementedError naming their ROADMAP item.  Every
+occupancy raster in ``node.state.og``; ``recovery`` (``--recovery``) turns on
+tracking-loss detection and relocalization (``models/slam.py``).  Options the
+port cannot run yet (sparse ring, GLIR, frontal-point decimation, the stencil
+patch) raise NotImplementedError naming their ROADMAP item.  Every
 cost mode of the JAX package runs (``models/slam.py:SLAM_COST_MODES``).
 
 Run over a log on the GPU::
@@ -203,9 +204,13 @@ class SlamNode:
         for cb in self.pose_callbacks:
             cb(timestamp, pose_np)
         if self.verbose and self.state.step > 1:
+            extra = ""
+            if self.slam_cfg.recovery.enabled:
+                extra = (f", fitness {float(self.state.fitness):.3f}"
+                         f", recoveries {self.state.recoveries}")
             print(
                 f"[ndtpso] scan {self.state.step}: pose "
-                f"({pose_np[0]:.3f}, {pose_np[1]:.3f}, {pose_np[2]:.3f}) | "
+                f"({pose_np[0]:.3f}, {pose_np[1]:.3f}, {pose_np[2]:.3f}){extra} | "
                 f"avg rate {self.meter.average_rate_hz:.2f} Hz, "
                 f"matching rate {self.meter.matching_rate_hz:.2f} Hz",
                 file=sys.stderr,
@@ -253,6 +258,8 @@ def main(argv=None) -> int:
                     help="padded beam count (static shape)")
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--og", action="store_true", help="build the occupancy grid")
+    ap.add_argument("--recovery", action="store_true",
+                    help="enable tracking-loss detection + multi-swarm relocalization")
     ap.add_argument("--quiet", action="store_true")
     ap.add_argument("--device", default=cfgm.DEFAULT_DEVICE,
                     help="torch device (default cuda; cpu runs the plain path)")
@@ -269,6 +276,8 @@ def main(argv=None) -> int:
     )
     if args.og:
         overrides["build_og"] = True
+    if args.recovery:
+        overrides["recovery"] = True
     if args.config:
         node_cfg = NodeConfig.from_json(args.config, **overrides)
     else:

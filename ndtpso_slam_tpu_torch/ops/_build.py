@@ -16,7 +16,6 @@ import ctypes
 import dataclasses
 import functools
 import hashlib
-import math
 import os
 import shutil
 import subprocess
@@ -125,23 +124,34 @@ def slice_floats(population: int) -> int:
     return 11 * population + 1
 
 
+def waves(batch: int, held: int) -> int:
+    """Waves of ``batch`` clusters on a device that holds ``held`` at once."""
+    return -(-batch // held)
+
+
 def choose_cluster(batch: int, smem_bytes: Callable[[int], int], smem_limit: int,
-                   sm_count: int) -> int:
+                   clusters_held: Callable[[int], int]) -> int:
     """The cluster size C a whole-solve kernel runs each of ``batch`` solves
-    on: the smallest of :data:`CLUSTER_SIZES` whose CTA fits the shared
+    on: among the sizes of :data:`CLUSTER_SIZES` whose CTA fits the shared
     memory (``smem_bytes(C)`` dynamic bytes plus :data:`STATIC_SMEM` within
-    ``smem_limit``) and that gives small batches enough CTAs to cover the
-    SMs, ``C >= min(8, next_pow2(ceil(sm_count / batch)))``.  Raises if no
-    size fits."""
-    spread = min(CLUSTER_SIZES[-1], 1 << (math.ceil(sm_count / batch) - 1).bit_length())
+    ``smem_limit``), the one that needs the fewest waves, ``ceil(batch /
+    clusters_held(C))`` with ``clusters_held(C)`` the most clusters of C the
+    device holds at once; ties go to the largest C, which spreads a solve's
+    points over the most SMs.  Raises if no size fits."""
+    best = None
     for c in CLUSTER_SIZES:
-        if c >= spread and smem_bytes(c) + STATIC_SMEM <= smem_limit:
-            return c
-    raise ValueError(
-        f"no cluster size in {CLUSTER_SIZES} fits: a CTA needs "
-        f"{smem_bytes(CLUSTER_SIZES[-1]) + STATIC_SMEM} B of shared memory at C="
-        f"{CLUSTER_SIZES[-1]}; the device allows {smem_limit} B"
-    )
+        if smem_bytes(c) + STATIC_SMEM > smem_limit:
+            continue
+        held = clusters_held(c)
+        if held > 0 and (best is None or waves(batch, held) <= best[0]):
+            best = (waves(batch, held), c)
+    if best is None:
+        raise ValueError(
+            f"no cluster size in {CLUSTER_SIZES} fits: a CTA needs "
+            f"{smem_bytes(CLUSTER_SIZES[-1]) + STATIC_SMEM} B of shared memory at C="
+            f"{CLUSTER_SIZES[-1]}; the device allows {smem_limit} B"
+        )
+    return best[1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -152,13 +162,27 @@ def device_limits(index: int):
     return props.shared_memory_per_block_optin, props.multi_processor_count
 
 
-def device_cluster(batch: int, smem_bytes: Callable[[int], int], device, cluster=None) -> int:
-    """:func:`choose_cluster` on ``device``'s shared memory per block and SM
-    count, or the forced ``cluster`` (tests), checked the same way."""
+# device_cluster's choices, by (kernel instantiation and shape, batch,
+# device index): the occupancy query runs once per shape, not per launch.
+CHOSEN: dict = {}
+
+
+def device_cluster(shape_key, batch: int, smem_bytes: Callable[[int], int],
+                   clusters_held: Callable[[int], int], device, cluster=None) -> int:
+    """:func:`choose_cluster` on ``device``'s shared memory per block and its
+    occupancy query ``clusters_held``, cached in :data:`CHOSEN` under
+    (``shape_key``, ``batch``, device index); or the forced ``cluster``
+    (tests), checked against the shared memory."""
     index = torch.device(device).index
-    limit, sm_count = device_limits(torch.cuda.current_device() if index is None else index)
+    index = torch.cuda.current_device() if index is None else index
     if cluster is None:
-        return choose_cluster(batch, smem_bytes, limit, sm_count)
+        key = (shape_key, batch, index)
+        chosen = CHOSEN.get(key)
+        if chosen is None:
+            chosen = CHOSEN[key] = choose_cluster(batch, smem_bytes, device_limits(index)[0],
+                                                  clusters_held)
+        return chosen
+    limit = device_limits(index)[0]
     if cluster not in CLUSTER_SIZES:
         raise ValueError(f"cluster {cluster} is not one of {CLUSTER_SIZES}")
     if smem_bytes(cluster) + STATIC_SMEM > limit:
@@ -167,9 +191,21 @@ def device_cluster(batch: int, smem_bytes: Callable[[int], int], device, cluster
     return cluster
 
 
-def check_launch(cdll: ctypes.CDLL, err: int, name: str) -> None:
+def check_launch(cdll: ctypes.CDLL, err: int, name: str, what: str = "kernel launch") -> None:
     """Raise if a C entry reported a CUDA error for its launch."""
     if err != 0:
         raise RuntimeError(
-            f"{name} kernel launch failed: {cdll.ndt_cuda_error_string(err).decode()}"
+            f"{name} {what} failed: {cdll.ndt_cuda_error_string(err).decode()}"
         )
+
+
+def max_active_clusters(cdll: ctypes.CDLL, entry: str, device, n_pts: int, population: int,
+                        cluster: int, last: int) -> int:
+    """The most clusters of ``cluster`` CTAs ``device`` holds at once for a
+    whole-solve kernel at this shape (cudaOccupancyMaxActiveClusters), from
+    the library's C entry ``entry(n_pts, population, cluster, last, out)``."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = getattr(cdll, entry)(n_pts, population, cluster, last, ctypes.byref(out))
+    check_launch(cdll, err, entry, "occupancy query")
+    return out.value

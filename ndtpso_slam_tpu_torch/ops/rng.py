@@ -106,11 +106,13 @@ def pso_iter_pair_base(population: int) -> int:
     return 3 + population * 3
 
 
-def pso_iter_pairs(i, population: int, device=None):
-    """Pair counters for iteration i: [P, 3] (each yields (r1, r2))."""
+def pso_iter_pairs(i, population: int, device=None, count=None):
+    """Pair counters for iteration i: [P, 3] (each yields (r1, r2)); with
+    ``count``, those of iterations i .. i + count - 1: [count, P, 3]."""
     base = pso_iter_pair_base(population) + i * population * 3
-    offs = torch.arange(population * 3, dtype=torch.int64, device=device)
-    return ((base + offs) & _M32).reshape(population, 3)
+    offs = torch.arange((count or 1) * population * 3, dtype=torch.int64, device=device)
+    pairs = (base + offs) & _M32
+    return pairs.reshape(population, 3) if count is None else pairs.reshape(count, population, 3)
 
 
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)

@@ -89,6 +89,14 @@ def global_route(n_pts: int, population: int, smem_limit: int) -> bool:
     return population > max_population(n_pts, smem_limit)
 
 
+def clusters_held(n_pts: int, population: int, cluster: int, global_state: bool, device) -> int:
+    """The most clusters of ``cluster`` CTAs ``device`` holds at once for the
+    kernel at this shape and route (cudaOccupancyMaxActiveClusters; every
+    instantiation of a route has 512 threads at <= 128 registers)."""
+    return _build.max_active_clusters(_build.load(LIB), "ndt_rollout_max_active_clusters",
+                                      device, n_pts, population, cluster, int(global_state))
+
+
 def pack_rollout_inputs(nbr: cost_mod.NeighborhoodBind, points: torch.Tensor):
     """Repack a NeighborhoodBind and its points [..., N, 2] into the kernel's
     layouts, points on the last axis as in the JAX package: stencil
@@ -266,7 +274,10 @@ def _launch(keys, guesses, deviations, sten, pts, cfg, map_cfg, radius, score_dt
     lib = _build.load(LIB)
     index = torch.cuda.current_device() if dev.index is None else dev.index
     glob = global_route(n, cfg.population, _build.device_limits(index)[0])
-    c = _build.device_cluster(b, lambda c: smem_bytes(n, cfg.population, c, glob), dev, cluster)
+    c = _build.device_cluster(
+        ("rollout", n, cfg.population, glob), b,
+        lambda c: smem_bytes(n, cfg.population, c, glob),
+        lambda c: clusters_held(n, cfg.population, c, glob, dev), dev, cluster)
     scratch = (torch.empty((b * c, _build.slice_floats(cfg.population)), dtype=torch.float32,
                            device=dev)
                if glob else None)

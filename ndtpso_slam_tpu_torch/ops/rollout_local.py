@@ -82,6 +82,14 @@ def smem_bytes(n_pts: int, population: int, cluster: int,
     return 4 * ((k2 * 8 + 5) * s + 4 * k2 + part)
 
 
+def clusters_held(n_pts: int, population: int, cluster: int, radius: int, device) -> int:
+    """The most clusters of ``cluster`` CTAs ``device`` holds at once for the
+    kernel at this shape and route (cudaOccupancyMaxActiveClusters; every
+    register-route instantiation has 512 threads at <= 128 registers)."""
+    return _build.max_active_clusters(_build.load(LIB), "ndt_rollout_local_max_active_clusters",
+                                      device, n_pts, population, cluster, radius)
+
+
 def rank_sliced_sum(s: torch.Tensor, cluster: int) -> torch.Tensor:
     """Sum over the last axis in the order of a cluster of ``cluster`` CTAs:
     CTA r sums its slice [r·S, (r + 1)·S), S = ceil(N / cluster), and the
@@ -116,7 +124,7 @@ def pack_rollout_local_inputs(nbr: cost_mod.NeighborhoodBind, points: torch.Tens
         [
             torch.where(built, nbr.mean.to(f32), zero),
             torch.where(built, nbr.icov.to(f32), zero),
-            torch.where(built, zero, torch.tensor(BIG, dtype=f32, device=dev)),
+            torch.where(built, zero, torch.full((), BIG, dtype=f32, device=dev)),
             torch.zeros((*nbr.built.shape, 2), dtype=f32, device=dev),
         ],
         dim=-1,
@@ -211,7 +219,10 @@ def _launch(keys, guesses, deviations, sten, pts, cfg, map_cfg, radius, early_ex
     if guesses.shape != (b, 3) or deviations.shape != (b, 3) or keys.shape != (b, 2):
         raise ValueError("keys, guesses and deviations must be [B, 2], [B, 3], [B, 3]")
     lib = _build.load(LIB)
-    c = _build.device_cluster(b, lambda c: smem_bytes(n, cfg.population, c, radius), dev, cluster)
+    c = _build.device_cluster(
+        ("rollout_local", n, cfg.population, radius), b,
+        lambda c: smem_bytes(n, cfg.population, c, radius),
+        lambda c: clusters_held(n, cfg.population, c, radius, dev), dev, cluster)
     glob = global_route(cfg.population)
     scratch = (torch.empty((b * c, _build.slice_floats(cfg.population)), dtype=torch.float32,
                            device=dev)

@@ -349,19 +349,21 @@ def test_solve_batch_rejects_unknown_and_unported(world):
 # ------------------------------------------------ one solve per cluster
 
 H100_SMEM = 232448  # an H100's shared memory per block (opt-in)
-H100_SMS = 132
+# Clusters of C CTAs an H100 holds at once (chip_smoke.py phase 5c, K2 at
+# P=4096, N=384): one CTA per SM, 15 clusters of 8 at most.
+H100_HELD = {1: 132, 2: 66, 4: 30, 8: 15}.get
 
 
-# K2's C at P=4096 for B solves (rows) of N points (columns): the spread
-# over the 132 SMs at small B; at B=256 one CTA holds the particle state and
-# w unless N=1024's w needs two.
+# K2's C at P=4096 for B solves (rows) of N points (columns): the fewest
+# waves, then the largest C: one wave of C=8 at B <= 15, of C=4 at B=16; at
+# B=256 one CTA holds the particle state and w unless N=1024's w needs two.
 @pytest.mark.parametrize("batch,n_pts,want", [
-    (b, n, c) for b, row in ((1, (8, 8, 8)), (3, (8, 8, 8)), (16, (8, 8, 8)), (256, (1, 1, 2)))
+    (b, n, c) for b, row in ((1, (8, 8, 8)), (3, (8, 8, 8)), (16, (4, 4, 4)), (256, (1, 1, 2)))
     for n, c in zip((100, 384, 1024), row)
 ])
 def test_rollout_cluster_chooser_table(batch, n_pts, want):
     need = lambda c: tro.smem_bytes(n_pts, 4096, c)
-    assert _build.choose_cluster(batch, need, H100_SMEM, H100_SMS) == want
+    assert _build.choose_cluster(batch, need, H100_SMEM, H100_HELD) == want
 
 
 @pytest.mark.parametrize("n_pts,most", [(384, 5189), (1024, 5073), (100, 5240)])
@@ -369,19 +371,20 @@ def test_rollout_max_population(n_pts, most):
     """K2's route threshold: on the shared route every CTA holds the whole
     particle state in shared memory, so the most particles is what fits
     beside w's slice at C=8.  One more particle takes the global route,
-    whose CTA holds only w, so the chooser picks C by the batch alone, and
+    whose CTA holds only w, so the chooser picks C by the waves alone, and
     no population is refused."""
     assert tro.max_population(n_pts, H100_SMEM) == most
     assert not tro.global_route(n_pts, most, H100_SMEM)
     need = lambda p, glob: (lambda c: tro.smem_bytes(n_pts, p, c, glob))
-    assert _build.choose_cluster(16, need(most, False), H100_SMEM, H100_SMS) == 8
+    assert _build.choose_cluster(16, need(most, False), H100_SMEM, H100_HELD) == 8
     with pytest.raises(ValueError, match="no cluster size"):
-        _build.choose_cluster(16, need(most + 1, False), H100_SMEM, H100_SMS)
+        _build.choose_cluster(16, need(most + 1, False), H100_SMEM, H100_HELD)
     for p in (most + 1, 8192, 16384, 10**6):
         assert tro.global_route(n_pts, p, H100_SMEM)
         assert tro.smem_bytes(n_pts, p, 1, True) == 4 * 16 * n_pts
-        assert _build.choose_cluster(16, need(p, True), H100_SMEM, H100_SMS) == 8
-        assert _build.choose_cluster(256, need(p, True), H100_SMEM, H100_SMS) == 1
+        assert _build.choose_cluster(3, need(p, True), H100_SMEM, H100_HELD) == 8
+        assert _build.choose_cluster(16, need(p, True), H100_SMEM, H100_HELD) == 4
+        assert _build.choose_cluster(256, need(p, True), H100_SMEM, H100_HELD) == 1
 
 
 def _frozen_inputs(world, n=None, seed=4):

@@ -242,26 +242,28 @@ def test_wrapper_rejects_other_devices(world):
         )
 
 
-# An H100's shared memory per block (opt-in) and SM count.
+# An H100's shared memory per block (opt-in), and the clusters of C CTAs it
+# holds at once at one CTA per SM (chip_smoke.py phase 5c).
 H100_SMEM = 232448
-H100_SMS = 132
+H100_HELD = {1: 132, 2: 66, 4: 30, 8: 15}.get
 
 
-# C at P=4096 for B solves (rows) of N points (columns): the spread over the
-# 132 SMs at small B, the fit of the table slice at B=256.
+# C at P=4096 for B solves (rows) of N points (columns): the fewest waves,
+# then the largest C (one wave of C=8 at B <= 15, of C=4 at B=16), and the
+# fit of the table slice at B=256.
 @pytest.mark.parametrize("batch,n_pts,want", [
-    (b, n, c) for b, row in ((1, (8, 8, 8)), (3, (8, 8, 8)), (16, (8, 8, 8)), (256, (1, 2, 4)))
+    (b, n, c) for b, row in ((1, (8, 8, 8)), (3, (8, 8, 8)), (16, (4, 4, 4)), (256, (1, 2, 4)))
     for n, c in zip((100, 384, 1024), row)
 ])
 def test_cluster_chooser_table(batch, n_pts, want):
     need = lambda c: trl.smem_bytes(n_pts, 4096, c)
-    assert _build.choose_cluster(batch, need, H100_SMEM, H100_SMS) == want
+    assert _build.choose_cluster(batch, need, H100_SMEM, H100_HELD) == want
 
 
 def test_cluster_chooser_raises_when_nothing_fits():
     """N=2048, P=8192: even an eighth of the table does not fit a CTA."""
     with pytest.raises(ValueError, match="no cluster size"):
-        _build.choose_cluster(256, lambda c: trl.smem_bytes(2048, 8192, c), H100_SMEM, H100_SMS)
+        _build.choose_cluster(256, lambda c: trl.smem_bytes(2048, 8192, c), H100_SMEM, H100_HELD)
 
 
 def _poses(world, n=64, seed=4):

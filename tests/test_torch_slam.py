@@ -204,8 +204,10 @@ def test_node_cli_subprocess(log, tmp_path):
     np.testing.assert_allclose(rows[:, 4:7], log.odoms, atol=1e-5)
     err = np.hypot(*(rows[:, 1:3] - log.poses[:, :2]).T)
     assert err.max() < 0.25, f"CLI tracking error {err.max():.3f}"
-    # --og builds the raster; the poses do not move.
+    # --og builds the raster; the poses do not move.  Neither does
+    # --recovery on this healthy log.
     np.testing.assert_array_equal(_cli(log, tmp_path, "run_og", "--og"), rows)
+    np.testing.assert_array_equal(_cli(log, tmp_path, "run_rec", "--recovery"), rows)
 
 
 def test_node_build_og_runs_and_leaves_poses(log):
@@ -259,17 +261,36 @@ def test_default_device_is_cuda_and_raises_without_gpu(log):
 
 
 @pytest.mark.parametrize("override,roadmap", [
-    (dict(recovery=True), "B2"),
     (dict(optimizer="glir"), "B3"),
     (dict(ring_rows=64), "A5"),
     (dict(prefer_frontal_points=True), "A4"),
     (dict(patch_range_m=30.0), "A6"),
-    (dict(cost_mode="fast", recovery=True), "ROADMAP"),
     (dict(cost_mode="rollout_local_turbo", optimizer="glir"), "ROADMAP"),
 ])
 def test_unported_options_raise(override, roadmap):
     with pytest.raises(NotImplementedError, match=roadmap):
         SlamNode(NodeConfig(**{**SMALL, **override}), verbose=False, device="cpu")
+
+
+@pytest.mark.parametrize("cost_mode", ["exact", "fast"])
+def test_node_recovery_relocalizes_after_kidnap(cost_mode, capsys):
+    """The node with recovery on (the CLI's --recovery) over
+    tests/test_recovery.py's kidnap workload: the tracking loss is detected
+    and a relocalization accepted, in the exact and the frozen-cost align;
+    the verbose line reports fitness and recoveries."""
+    from test_torch_recovery import kidnap_workload
+
+    poses, ranges = kidnap_workload()
+    node = SlamNode(NodeConfig(frame_size_m=48.0, cell_side_m=1.0, window_slots=8, max_beams=360,
+                               pso_iterations=30, pso_population=50, cost_mode=cost_mode,
+                               recovery=True, recovery_fitness_threshold=0.2,
+                               init_pose=tuple(poses[0]), seed=7), device="cpu")
+    assert node.slam_cfg.recovery.enabled and node.slam_cfg.recovery.grid == (24, 24, 32)
+    for i, r in enumerate(ranges):
+        node.process_scan(r, -np.pi, 2 * np.pi / 360, 30.0, timestamp=0.1 * i)
+    assert node.state.recoveries >= 1
+    assert np.isfinite(np.stack(node.poses)).all()
+    assert "recoveries 1" in capsys.readouterr().err
 
 
 def test_synthetic_copy_matches_jax_package():
