@@ -1,6 +1,7 @@
 """Times the whole-solve kernels K1 and K2, the scoring kernel K3, E7's
-stages 1-3, the scan.launch step and K1's host time of one or more
-checkouts of this repository, on one GPU.
+stages 1-3, the scan.launch step, K1's host time, the row scatter E4 and
+the probe E6 dotgen of one or more checkouts of this repository, on one
+GPU.
 
     python checkout_ab.py ROOT [ROOT ...] [--clusters]
 
@@ -16,7 +17,12 @@ batch world (K2 f32 and turbo with early exit 2 at B=256, K3 on one cost
 evaluation of its 256 solves; K2 f32 and bf16 and K1 turbo on its first 16
 solves, at the cluster size the checkout's chooser picks)
 and E7's binding inputs at K2's shape
-(stages 1-3).  Kernel times are CUDA events (chip_smoke.py's
+(stages 1-3); E4 on phase 6d's inputs (the fleet's 12,288 update rows at
+W=2 with one and three fields, and at W=128): CUDA events back to back,
+device busy per call (torch.profiler, chip_smoke.py's ``_profile``) and
+the host time of one call until it returns, beside ``index_copy_``'s; E6
+dotgen on phase 6f's seeded [8, 512] tile, device busy per call, beside
+``einsum``'s.  Kernel times are CUDA events (chip_smoke.py's
 ``_events_ms``); host times are medians of ``time.perf_counter``.  K3's
 SASS (``cuobjdump -sass`` of the checkout's built library) gives the
 instructions its score loop runs per (particle, point) pair: the
@@ -40,6 +46,7 @@ import time
 CLUSTERS = (1, 2, 4, 8)
 HOST_REPS = 300
 STEP_RUNS = 5
+PROFILE_CALLS = 20
 
 
 def _smi() -> str:
@@ -146,6 +153,41 @@ def _cluster_times(cs, rl, ro, small, out):
             out[f"{name}_c{c}_ms"] = cs._events_ms(fn, 3) if fits else None
 
 
+def _device_us(cs, fn):
+    """Device busy per call (µs) over PROFILE_CALLS calls back to back."""
+    fn()
+    return cs._profile(lambda: [fn() for _ in range(PROFILE_CALLS)])[1] / PROFILE_CALLS * 1e3
+
+
+def _e4_e6(cs, dev, out):
+    """E4 (row_scatter beside index_copy_) and E6 dotgen (beside einsum)."""
+    import numpy as np
+    import torch
+
+    from ndtpso_slam_tpu_torch.experiments import mosaic_probe as mp
+    from ndtpso_slam_tpu_torch.experiments import scatter_unique_ab as su
+    from ndtpso_slam_tpu_torch.ops import probes
+    from ndtpso_slam_tpu_torch.ops import row_scatter as rsc
+
+    ids, rs = su.fleet_ids()
+    fid = torch.from_numpy(ids).to(dev)
+    for key, rows, idx, width, n_fields in (("w2", su.R, fid, su.W, 1), ("w2x3", su.R, fid, su.W, 3),
+                                            ("w128", su.C, fid % su.C, su.W_TPU, 1)):
+        vals = [torch.from_numpy(rs.randn(su.M, width).astype(np.float32)).to(dev)
+                for _ in range(n_fields)]
+        ops = [torch.zeros((rows + 1, width), device=dev) for _ in range(n_fields)]
+        for name, fn in (("e4", lambda: rsc.row_scatter(ops, idx, vals)),
+                         ("index_copy", lambda: [op.index_copy_(0, idx, v)
+                                                 for op, v in zip(ops, vals)])):
+            out[f"{name}_{key}_ms"] = cs._events_ms(fn, 30)
+            out[f"{name}_{key}_device_us"] = _device_us(cs, fn)
+            out[f"{name}_{key}_host_us"] = _host_us(fn)[0]
+    x, _ = mp.inputs(dev, seed=5)
+    out["e6_dotgen_device_us"] = _device_us(cs, lambda: probes.mosaic_probe("dotgen", x, mp.N))
+    head = x[:, :mp.N]
+    out["einsum_device_us"] = _device_us(cs, lambda: torch.einsum("rn,rq->q", head, x))
+
+
 def measure(root: str, clusters: bool) -> dict:
     """The numbers of one checkout, imported from root."""
     root = os.path.abspath(root)
@@ -163,7 +205,10 @@ def measure(root: str, clusters: bool) -> dict:
     for mod in (cs, ro):
         if not os.path.abspath(mod.__file__).startswith(root):
             raise RuntimeError(f"imported {mod.__file__}, not from {root}")
-    _build.build(rl.LIB, ro.LIB, rb.LIB, sc.LIB)  # before any timing
+    from ndtpso_slam_tpu_torch.ops import probes
+    from ndtpso_slam_tpu_torch.ops import row_scatter as rsc
+
+    _build.build(rl.LIB, ro.LIB, rb.LIB, sc.LIB, rsc.LIB, probes.LIB)  # before any timing
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -203,6 +248,7 @@ def measure(root: str, clusters: bool) -> dict:
             lambda: rb.rollout_bisect(s, *args, population=4096, iterations=50), 3)
     if clusters and hasattr(ro, "smem_bytes"):
         _cluster_times(cs, rl, ro, small, out)
+    _e4_e6(cs, dev, out)
     return out
 
 

@@ -74,7 +74,12 @@ their kernels-line entries carry the C each ran with (`cluster`).
       call's own inputs against its plain version and float64;
    d. scatter_unique_ab: the row scatter at W=2 over 2.88 M rows and at
       W=128 over 360,001 rows, bit-equal to index_copy_ on unique ids and
-      to its plain version on duplicate ids, beside the library calls;
+      to its plain version on duplicate ids, beside the library calls; then
+      at W=2 (one and three fields), W=128 and at M = 1,000,000 (more blocks
+      than the card holds at once): the launch shape, bit-equal to the plain
+      version, and the kernel's and index_copy_'s times three ways (CUDA
+      events back to back, device busy and device operations per call, the
+      host time until a call returns);
    e. io_probe: the four input-layout probes at the script's shape (B=2,
       N=256) and at C1's batch shape (B=256, N=384: a 78.6 MB stencil
       table), beside torch.sum over the same tensor;
@@ -864,8 +869,9 @@ def _expected_launches(mode, iterations):
     return {"score": iterations + 2}  # the seed, the population, each iteration
 
 
-def _profile(fn):
-    """One call under torch.profiler: (kernel launches, device busy ms, wall ms)."""
+def _profile(fn, name=None):
+    """One call under torch.profiler: (kernel launches, device busy ms, wall
+    ms), of the kernels whose name holds `name` if one is given."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -876,7 +882,8 @@ def _profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and (name is None or name in e.key)]
     busy_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
                   for e in kern)
     return sum(e.count for e in kern), busy_us / 1e3, wall
@@ -1372,9 +1379,16 @@ def phase_scatter(dev):
     fid = torch.from_numpy(ids).to(dev)
     vals = torch.from_numpy(rs.randn(su.M, su.W).astype(np.float32)).to(dev)
     vals128 = torch.from_numpy(rs.randn(su.M, su.W_TPU).astype(np.float32)).to(dev)
+    # A million update rows: more blocks than the card holds at once, so
+    # the capped grid strides every phase.  Ids uniform over the fleet's rows
+    # and the junk row.
+    gid = torch.from_numpy(rs.randint(0, su.R + 1, E4_LARGE_M)).to(dev)
+    gvals = torch.from_numpy(rs.randn(E4_LARGE_M, su.W).astype(np.float32)).to(dev)
     variants = {}
     for key, n_rows, idx, v, n_fields in (("w2", su.R, fid, vals, 1), ("w2_3fields", su.R, fid, vals, 3),
-                                          ("w128", su.C, fid % su.C, vals128, 1)):
+                                          ("w128", su.C, fid % su.C, vals128, 1),
+                                          ("w2_large", su.R, gid, gvals, 1)):
+        m = idx.shape[0]
         base = torch.randn((n_rows + 1, v.shape[1]), device=dev)
         vs = [v + k for k in range(n_fields)]
         got = rsc.row_scatter([base.clone() for _ in vs], idx, vs)
@@ -1384,21 +1398,32 @@ def phase_scatter(dev):
         del got, want
         ops = [base.clone() for _ in vs]
         plain_ms = _events_ms(lambda: rsc.row_scatter_reference(ops, idx, vs), 3)
-        tag = "_w128" if key == "w128" else ""
-        ms = res[("row_scatter_3" if n_fields == 3 else "row_scatter") + tag]
-        lib_ms = res["index_copy" + tag] if n_fields == 1 else None
+        kernel = _time_split(lambda: rsc.row_scatter(ops, idx, vs), su.REPS, 1)
+        # index_copy_ once per field, one kernel each: one call for one
+        # field, the yardstick (library_ms) only there.
+        library = _time_split(lambda: [op.index_copy_(0, idx, x) for op, x in zip(ops, vs)],
+                              su.REPS, n_fields)
         unique = int(torch.unique(idx).numel())
         width = v.shape[1]
         # The M ids, then each target's winning row read once and written
         # once per field: a scatter-set moves no other row.
-        bms, by = bound(8.0 * su.M + 2 * n_fields * 4.0 * width * unique)
-        variants[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=0.0,
-                             bound_ms=bms, bound_by=by, rows=n_rows + 1, width=width,
-                             fields=n_fields, unique_rows=unique)
-        print(f"[phase 6d] row_scatter {key} ({n_rows + 1} rows x {width}, M={su.M}, {unique} "
-              f"distinct targets): kernel = plain bit for bit; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.3f} ms, index_copy_ {lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms, "
-              f"bound {bms:.5f} ms ({by}, {100 * bms / ms:.2f}% of it)")
+        bms, by = bound(8.0 * m + 2 * n_fields * 4.0 * width * unique)
+        ms = kernel["ms"]
+        variants[key] = dict(ms=ms, plain_ms=plain_ms,
+                             library_ms=library["ms"] if n_fields == 1 else None,
+                             max_abs_err=0.0, bound_ms=bms, bound_by=by, rows=n_rows + 1,
+                             width=width, fields=n_fields, unique_rows=unique,
+                             table_slots=rsc.table_slots(m), grid_blocks=rsc.grid_blocks(m),
+                             device_ms=kernel["device_ms"], device_ops=kernel["device_ops"],
+                             host_us=kernel["host_us"], index_copy=library)
+        print(f"[phase 6d] row_scatter {key} ({n_rows + 1} rows x {width}, M={m}, {unique} "
+              f"distinct targets; one launch, a table of {rsc.table_slots(m)} slots, "
+              f"{rsc.grid_blocks(m)} blocks asked): kernel = plain bit for bit; plain "
+              f"{plain_ms:.3f} ms, bound {bms:.5f} ms ({by}, {100 * bms / ms:.2f}% of it)")
+        for name, t in (("row_scatter", kernel), (f"index_copy_ x{n_fields}", library)):
+            print(f"[phase 6d]   {name:15s}: {t['ms']:.4f} ms back to back (events), device busy "
+                  f"{t['device_ms']:.4f} ms per call ({t['device_ops']:.1f} device operations "
+                  f"recorded per call), host {t['host_us']:.1f} us per call until it returns")
         del base, ops
     print("[phase 6d] library calls (ms): " + ", ".join(
         f"{k} {v:.4f}" for k, v in res.items() if isinstance(v, float)))
@@ -1407,6 +1432,11 @@ def phase_scatter(dev):
                          library_ms=variants["w2"]["library_ms"])
     entry["library_calls_ms"] = {k: v for k, v in res.items() if isinstance(v, float)}
     return entry
+
+
+# Phase 6d: update rows of the large variant, whose table asks for more
+# blocks than the card holds at once.
+E4_LARGE_M = 1_000_000
 
 
 # Phases 6e-6g, the bring-up probes.  A probe's sums run in another order
@@ -1474,8 +1504,29 @@ def _cold_ms(fn, reps):
     return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
-def _device_ms(fn):
-    return _profile(lambda: [fn() for _ in range(PROFILE_CALLS)])[1] / PROFILE_CALLS
+def _device_ms(fn, kernel=None):
+    """Device busy per call over PROFILE_CALLS calls (torch.profiler); with
+    `kernel`, the mean recorded launch of the kernels whose name holds it (a
+    wrapper that launches that kernel once per call, beside PyTorch ops of
+    its own).  Late in a full run the profiler records only part of the
+    launches (fewer than the wrappers count), so a total over the calls
+    under-counts."""
+    n, busy, _ = _profile(lambda: [fn() for _ in range(PROFILE_CALLS)], kernel)
+    if kernel is None:
+        return busy / PROFILE_CALLS
+    check(n > 0, f"the profiler recorded no launch of {kernel}")
+    return busy / n
+
+
+def _time_split(fn, reps, kernels):
+    """A call of `kernels` kernels and no other device operation timed three
+    ways: CUDA events over reps calls back to back (ms), device busy per call
+    (torch.profiler: `kernels` times the mean recorded kernel, as the
+    profiler may miss some; with the operations it recorded per call), and
+    the host time until the call returns (us)."""
+    ops, busy, _ = _profile(lambda: [fn() for _ in range(PROFILE_CALLS)])
+    return dict(ms=_events_ms(fn, reps), device_ms=busy / max(ops, 1) * kernels,
+                device_ops=ops / PROFILE_CALLS, host_us=_host_us(fn))
 
 
 def _sum_ok(got, want, magnitudes):
@@ -1507,7 +1558,7 @@ def phase_io_probe(dev):
             check(torch.isfinite(got).all() and _sum_ok(got, want, probes.io_magnitudes(name, src)),
                   f"io_probe {name} B={b} N={n}: max |kernel - plain| {err:.3e}")
             plain_ms = _events_ms(lambda: probes.io_probe_reference(name, *args), 3)
-            dev_ms = _device_ms(lambda: probes.io_probe(name, *args))
+            dev_ms = _device_ms(lambda: probes.io_probe(name, *args), "io_kernel")
             table = src.view(b, -1, 8, n)  # the points as one stencil offset
             library = lambda: torch.sum(table, dim=(1, 3))
             lib_ms = _events_ms(library, reps)
@@ -1537,8 +1588,8 @@ def phase_io_probe(dev):
 def _mosaic_ops(name, numel, n_dot):
     if name == "threefry":
         return dict(int32=float(THREEFRY_INT_OPS * numel))
-    if name == "dotgen":  # z over 8 rows for n_dot x P pairs, then the sum over n
-        return dict(fp32=float(2 * numel * n_dot + n_dot * (numel // 8)))
+    if name == "dotgen":  # the least the column totals need: the 8 row sums
+        return dict(fp32=float(8 * n_dot + 2 * numel))  # over n, then 8 products and sums per q
     return dict(fp32=float(numel))
 
 
@@ -1586,7 +1637,7 @@ def phase_mosaic_probe(dev):
                 ok = _sum_ok(got, want, probes.mosaic_magnitudes(name, x, mp.N))
             check(ok, f"mosaic_probe {name} (seed {seed}): max |kernel - plain| {err:.3e}")
             plain_ms = _events_ms(lambda: probes.mosaic_probe_reference(name, arg, mp.N), 3)
-            dev_ms = _device_ms(lambda: probes.mosaic_probe(name, arg, mp.N))
+            dev_ms = _device_ms(lambda: probes.mosaic_probe(name, arg, mp.N), "mosaic_kernel")
             library = _mosaic_library(name, x, mp.N)
             lib_ms = lib_dev_ms = None
             if library is not None:  # timed as the kernel: back to back, and device busy

@@ -17,10 +17,12 @@
 // B = 256, N = 384) is read once; each warp reads 32 neighbouring points of
 // one (k, r) row, 25 independent loads in flight per point.
 //
-// mosaic_kernel<probe>: one block of 512 threads over the [8, P] tile.
-// Row sums and the row-0 minimum are block reductions in shared memory;
-// k_dotgen's contraction z[n, p] = sum_r x[r, n] x[r, p] and its sum over n
-// run in the kernel's body, the 8 x n block of x staged in shared memory.
+// mosaic_kernel<probe>: one block of 512 threads over the [8, P] tile
+// (k_dotgen: a grid of them over the columns).  Row sums and the row-0
+// minimum are warp reductions.  k_dotgen's function, the column totals
+// sum_n z[n, q] of z[n, q] = sum_r x[r, n] x[r, q], is computed summed over
+// n first, sum_r (sum_n x[r, n]) x[r, q]: 8 n + 16 P operations where the
+// contraction as written takes 16 n P, and no serial chain over n.
 // What bounds it: a launch; the tile is 16 KB.
 //
 // Numerics: --fmad=false and no fast math, so every + - * rounds as in
@@ -49,7 +51,7 @@ constexpr int kLanes = 128;  // the TPU output tile's lane width
 constexpr int kK2 = 25;      // stencil offsets (radius 2)
 constexpr int kRows = 8;
 constexpr int kMosaicThreads = 512;
-constexpr int kMaxDotN = 1024;  // k_dotgen's contraction length staged in shared memory
+constexpr int kMaxDotN = 1024;  // the longest contraction k_dotgen takes
 
 template <int kProbe>
 __global__ void __launch_bounds__(kIoThreads)
@@ -95,7 +97,6 @@ mosaic_kernel(const float* __restrict__ x, const uint32_t* __restrict__ xi,
   const int warp = tid >> 5;
   const int lane = tid & 31;
   __shared__ float s_row[kRows];
-  __shared__ float s_dot[kRows * kMaxDotN];
 
   if (kProbe == kCol3) {
     for (int e = tid; e < kRows * p; e += kMosaicThreads) {
@@ -132,16 +133,31 @@ mosaic_kernel(const float* __restrict__ x, const uint32_t* __restrict__ xi,
     for (int e = tid; e < kRows * p; e += kMosaicThreads) out[e] = x[e] + v;
     return;
   }
-  if (kProbe == kForiSmall || kProbe == kBcastOut) {
-    // Row sums: warp r sums row r.
+  if (kProbe == kForiSmall || kProbe == kBcastOut || kProbe == kDotgen) {
+    // Row sums: warp r sums row r (k_dotgen: its first n_dot columns), each
+    // lane its columns in order, then a butterfly over the lanes.
+    const int len = kProbe == kDotgen ? n_dot : p;
     if (warp < kRows) {
       float s = 0.0f;
-      for (int c = lane; c < p; c += 32) s += x[warp * p + c];
+      for (int c = lane; c < len; c += 32) s += x[warp * p + c];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
       if (lane == 0) s_row[warp] = s;
     }
     __syncthreads();
+    if (kProbe == kDotgen) {
+      // out[:, q] = sum_n z[n, q], z[n, q] = sum_r x[r, n] x[r, q] (n < n_dot),
+      // summed over n first: sum_r s_r x[r, q], r = 0..7 in order.  Every
+      // block of the grid over q recomputes the 8 row sums.
+      for (int q = blockIdx.x * kMosaicThreads + tid; q < p; q += gridDim.x * kMosaicThreads) {
+        float acc = s_row[0] * x[q];
+#pragma unroll
+        for (int r = 1; r < kRows; ++r) acc = acc + s_row[r] * x[r * p + q];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) out[r * p + q] = acc;
+      }
+      return;
+    }
     if (kProbe == kBcastOut) {
       for (int e = tid; e < kRows * p; e += kMosaicThreads) out[e] = s_row[e / p];
       return;
@@ -166,29 +182,6 @@ mosaic_kernel(const float* __restrict__ x, const uint32_t* __restrict__ xi,
         if (rr == r) acc = acc + a[rr];
       out[e] = acc + b + w;
     }
-    return;
-  }
-  if (kProbe == kDotgen) {
-    // out[:, q] = sum_n z[n, q], z[n, q] = sum_r x[r, n] x[r, q] (n < n_dot).
-    for (int e = tid; e < kRows * n_dot; e += kMosaicThreads) {
-      const int r = e / n_dot;
-      s_dot[e] = x[r * p + (e - r * n_dot)];
-    }
-    __syncthreads();
-    for (int q = tid; q < p; q += kMosaicThreads) {
-      float xq[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) xq[r] = x[r * p + q];
-      float acc = 0.0f;
-      for (int nn = 0; nn < n_dot; ++nn) {
-        float z = s_dot[nn] * xq[0];
-#pragma unroll
-        for (int r = 1; r < kRows; ++r) z = z + s_dot[r * n_dot + nn] * xq[r];
-        acc = acc + z;
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) out[r * p + q] = acc;
-    }
   }
 }
 
@@ -202,7 +195,9 @@ int launch_io(const void* src, const void* keys, void* out, int batch, int n, cu
 
 template <int kProbe>
 int launch_mosaic(const void* x, const void* xi, void* out, int p, int n_dot, cudaStream_t st) {
-  mosaic_kernel<kProbe><<<1, kMosaicThreads, 0, st>>>(
+  // k_dotgen: a grid over the columns; the others: one block.
+  const int blocks = kProbe == kDotgen ? (p + kMosaicThreads - 1) / kMosaicThreads : 1;
+  mosaic_kernel<kProbe><<<blocks, kMosaicThreads, 0, st>>>(
       static_cast<const float*>(x), static_cast<const uint32_t*>(xi), static_cast<float*>(out),
       p, n_dot);
   return (int)cudaGetLastError();

@@ -412,6 +412,16 @@ def test_row_scatter_rejects_rows_past_int32():
         trow.row_scatter([huge], torch.tensor([0, 2**32]), [torch.zeros(2, 2)])
 
 
+@pytest.mark.parametrize("m,slots,blocks", [(1, 2, 1), (100, 256, 1), (12_288, 32_768, 128),
+                                            (65_536, 131_072, 512),
+                                            (1_000_000, 2_097_152, 8_192)])
+def test_row_scatter_table_and_grid_by_m(m, slots, blocks):
+    """The claim table's slots (the least power of two >= 2 M) and the blocks
+    the launch asks for (a thread per slot; the kernel caps them at what the
+    card holds at once, and its loops stride the grid)."""
+    assert trow.table_slots(m) == slots and trow.grid_blocks(m) == blocks
+
+
 def test_e4_study_runs_on_the_cpu():
     res = tsu.run(torch.device("cpu"), b=2, c=500, m=256, reps=1)
     assert res["correct"] and res["duplicate_rule"]
@@ -480,7 +490,8 @@ def test_score_block_kernel_matches_plain_on_gpu(cuda_device, variant):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_fields,width", [(1, 2), (3, 2), (1, 128), (2, 33)])
+@pytest.mark.parametrize("n_fields", [1, 2, 3])
+@pytest.mark.parametrize("width", [1, 2, 3, 4, 5, 33, 128, 129])
 def test_row_scatter_kernel_matches_plain_on_gpu(cuda_device, n_fields, width):
     """Bit-equal to the plain version, duplicates and dropped ids included,
     and to index_copy_ on unique ids."""
@@ -497,3 +508,115 @@ def test_row_scatter_kernel_matches_plain_on_gpu(cuda_device, n_fields, width):
     targets, rows = trow.winners(idx, 10001)
     got = trow.row_scatter([base.clone()], targets, [vals[0][rows]])[0]
     assert torch.equal(got, base.clone().index_copy_(0, targets, vals[0][rows]))
+
+
+def _scatter_case(device, m, rows, width, n_fields=1, seed=0, offset=0):
+    """ids [m] over [-2, rows + 2) and the operands and vals, on device;
+    offset > 0 starts every operand and vals that many floats into its
+    storage (rows no longer aligned to 8 or 16 bytes)."""
+    rs = np.random.RandomState(seed)
+    idx = torch.from_numpy(rs.randint(-2, rows + 2, m)).to(device)
+
+    def placed(a):
+        flat = torch.zeros(a.size + offset, dtype=torch.float32, device=device)
+        flat[offset:] = torch.from_numpy(a.reshape(-1)).to(device)
+        return flat[offset:].view(a.shape)
+
+    base = rs.randn(rows, width).astype(np.float32)
+    vals = [placed(rs.randn(m, width).astype(np.float32)) for _ in range(n_fields)]
+    return idx, [placed(base) for _ in range(n_fields)], vals
+
+
+def _scatter_equal(ops, idx, vals):
+    """row_scatter on copies of ops bit-equal to the plain version, in one
+    launch."""
+    before = trow.row_scatter.LAUNCHES
+    got = trow.row_scatter([op.clone() for op in ops], idx, vals)
+    assert trow.row_scatter.LAUNCHES == before + 1
+    want = trow.row_scatter_reference([op.clone() for op in ops], idx, vals)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [2, 4, 5, 128])
+def test_row_scatter_misaligned_rows_on_gpu(cuda_device, width):
+    """Operands and vals one float into their storage: the kernel takes the
+    vector width their alignment allows."""
+    idx, ops, vals = _scatter_case(cuda_device, 3000, 1000, width, n_fields=3, offset=1)
+    assert ops[0].data_ptr() % 8 == 4
+    _scatter_equal(ops, idx, vals)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [2, 128])
+@pytest.mark.parametrize("m", [65_536, 1_000_000])
+def test_row_scatter_beyond_one_thread_per_slot_on_gpu(cuda_device, m, width):
+    """M whose table asks for more blocks than the card holds at once (from
+    M = 65,536 at W=128, where the kernel's registers allow fewer blocks
+    per SM): the grid is capped and every phase strides it."""
+    idx, ops, vals = _scatter_case(cuda_device, m, 2 * m if width == 2 else 20_000, width, seed=3)
+    _scatter_equal(ops, idx, vals)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [12_288, 300_000])
+@pytest.mark.parametrize("stream", ["one_row", "out_of_range"])
+def test_row_scatter_degenerate_id_streams_on_gpu(cuda_device, stream, m):
+    """Every id aimed at one row (the last update row wins), and every id
+    out of range (nothing written)."""
+    _, ops, vals = _scatter_case(cuda_device, m, 1000, 3)
+    if stream == "one_row":
+        idx = torch.full((m,), 7, dtype=torch.int64, device=cuda_device)
+    else:
+        idx = torch.tensor([-1, 1000, 2**40], device=cuda_device).repeat(m // 3 + 1)[:m]
+    got = trow.row_scatter([ops[0].clone()], idx, vals)[0]
+    torch.cuda.synchronize()
+    want = ops[0].clone()
+    if stream == "one_row":
+        want[7] = vals[0][-1]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_row_scatter_no_update_rows_on_gpu(cuda_device):
+    """M = 0: no launch, nothing written."""
+    _, ops, _ = _scatter_case(cuda_device, 1, 100, 2)
+    before = trow.row_scatter.LAUNCHES
+    got = trow.row_scatter([ops[0].clone()], torch.zeros(0, dtype=torch.int64, device=cuda_device),
+                           [torch.zeros((0, 2), device=cuda_device)])[0]
+    assert trow.row_scatter.LAUNCHES == before and torch.equal(got, ops[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m1,m2", [(12_288, 300_000), (300_000, 12_288)])
+def test_row_scatter_calls_in_a_row_on_gpu(cuda_device, m1, m2):
+    """Two calls on different id streams into the same operands, the second
+    smaller or larger than the first (so the stream's table grows): the
+    second sees nothing of the first's claims."""
+    idx1, ops, vals1 = _scatter_case(cuda_device, m1, 5000, 2, seed=1)
+    idx2, _, vals2 = _scatter_case(cuda_device, m2, 5000, 2, seed=2)
+    got = [op.clone() for op in ops]
+    trow.row_scatter(got, idx1, vals1)
+    trow.row_scatter(got, idx2, vals2)
+    want = trow.row_scatter_reference([op.clone() for op in ops], idx1, vals1)
+    trow.row_scatter_reference(want, idx2, vals2)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.gpu
+def test_row_scatter_on_two_streams_on_gpu(cuda_device):
+    """Calls on two streams at once, each with its own table."""
+    cases = [_scatter_case(cuda_device, 50_000, 5000, 2, seed=s) for s in (4, 5)]
+    got = [[op.clone() for op in ops] for _, ops, _ in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda_device) for _ in cases]
+    for stream, (idx, _, vals), g in zip(streams, cases, got):
+        with torch.cuda.stream(stream):
+            trow.row_scatter(g, idx, vals)
+    torch.cuda.synchronize()
+    for (idx, ops, vals), g in zip(cases, got):
+        want = trow.row_scatter_reference([op.clone() for op in ops], idx, vals)
+        assert torch.equal(g[0], want[0])

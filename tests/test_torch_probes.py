@@ -211,6 +211,52 @@ def test_mosaic_probe_rejects_bad_inputs():
         probes.mosaic_probe("col3", x[:4])
 
 
+def _dotgen_twin(x, n_dot):
+    """csrc/probes.cu's k_dotgen in float32, step for step: warp r sums row r
+    of the head x[:, :n_dot] (lane l its columns l, l + 32, ... in order,
+    then a butterfly over the lanes), then every column q takes
+    sum_r s_r x[r, q] in order r = 0..7, each product and sum rounded."""
+    x = x.astype(np.float32)
+    lanes = np.zeros((8, 32), np.float32)
+    for c in range(0, n_dot, 32):
+        chunk = x[:, c:min(c + 32, n_dot)]
+        lanes[:, :chunk.shape[1]] = lanes[:, :chunk.shape[1]] + chunk
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, np.arange(32) ^ off]
+    s = lanes[:, 0]
+    acc = s[0] * x[0]
+    for r in range(1, 8):
+        acc = acc + s[r] * x[r]
+    return np.broadcast_to(acc, x.shape)
+
+
+def _cancelling_tile(seed=7, p=tmo.P, n_dot=probes.N_DOT):
+    """A tile whose rows' heads each sum to nearly 0: the second half of
+    every head is minus the first, plus noise of 1e-6."""
+    rs = np.random.RandomState(seed)
+    x = rs.uniform(-1, 1, (8, p)).astype(np.float32)
+    half = n_dot // 2
+    x[:, half:2 * half] = -x[:, :half] + rs.uniform(-1e-6, 1e-6, (8, half)).astype(np.float32)
+    return x
+
+
+@pytest.mark.parametrize("tile", ["ones", "seed5", "seed6", "cancelling"])
+def test_dotgen_factored_arithmetic_fits_the_sum_tolerance(tile):
+    """The kernel's factored arithmetic (row sums of the head first, then
+    sum_r s_r x[r, q]) against the unfactored plain version, within the
+    sum-order tolerance the card holds the kernel to."""
+    if tile == "cancelling":
+        x = _cancelling_tile()
+        assert np.abs(x[:, :probes.N_DOT].sum(axis=1)).max() < 1e-4
+    else:
+        x = tmo.inputs(CPU, seed=None if tile == "ones" else int(tile[-1]))[0].numpy()
+    xt = torch.from_numpy(x)
+    want = probes.mosaic_probe_reference("dotgen", xt).numpy()
+    got = _dotgen_twin(x, probes.N_DOT)
+    atol = SUM_ATOL * probes.mosaic_magnitudes("dotgen", xt).numpy()
+    assert (np.abs(got - want) <= SUM_RTOL * np.abs(want) + atol).all()
+
+
 def test_mosaic_probe_entry_point_runs_on_the_cpu(capsys):
     res = tmo.run(CPU, seed=1, reps=1)
     assert list(res) == list(tmo.PROBES)
@@ -251,6 +297,21 @@ def test_io_probe_kernel_matches_plain_on_gpu(cuda_device, name, b, n):
     want = probes.io_probe_reference(name, *args)
     atol = SUM_ATOL * probes.io_magnitudes(name, args[0])
     assert ((got - want).abs() <= SUM_RTOL * want.abs() + atol).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_dot,p", [(n, p) for p in (512, 1000, 4096) for n in (1, 7, 256, 1024)
+                                     if n <= p])
+def test_mosaic_dotgen_kernel_matches_plain_on_gpu(cuda_device, n_dot, p):
+    """dotgen's grid over the columns at tiles wider than one block, and
+    contraction lengths from 1 to the longest, on seeded tiles and on the
+    cancelling one."""
+    for x in (tmo.inputs(cuda_device, p=p, seed=n_dot)[0],
+              torch.from_numpy(_cancelling_tile(p=p, n_dot=n_dot)).to(cuda_device)):
+        got = probes.mosaic_probe("dotgen", x, n_dot)
+        want = probes.mosaic_probe_reference("dotgen", x, n_dot)
+        atol = SUM_ATOL * probes.mosaic_magnitudes("dotgen", x, n_dot)
+        assert ((got - want).abs() <= SUM_RTOL * want.abs() + atol).all()
 
 
 @pytest.mark.gpu
