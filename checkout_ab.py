@@ -1,9 +1,9 @@
 """Times the whole-solve kernels K1 and K2, the scoring kernel K3, E7's
 stages 1-3, the scan.launch step, K1's host time, the row scatter E4 and
-the probe E6 dotgen of one or more checkouts of this repository, on one
+the probes E5 and E6 of one or more checkouts of this repository, on one
 GPU.
 
-    python checkout_ab.py ROOT [ROOT ...] [--clusters]
+    python checkout_ab.py ROOT [ROOT ...] [--clusters] [--probes]
 
 Each ROOT is a checkout (its package and its chip_smoke.py).  Each runs in a
 process of its own that imports only from its ROOT, in the order given, so an
@@ -12,7 +12,8 @@ workloads are chip_smoke.py's own, built by the checkout's chip_smoke.py:
 phase 4's 50-scan scan.launch log (step latency, over STEP_RUNS runs of the
 log, each on a new node; then K1 at B=1 on the next solve's inputs: its
 CUDA-event time, the host time of one wrapper call until it returns, and
-the wall time of a call and a synchronize), phase 5's
+the wall time of a call and a synchronize; then phase 4's profiled window,
+device kernels per scan), phase 5's
 batch world (K2 f32 and turbo with early exit 2 at B=256, K3 on one cost
 evaluation of its 256 solves; K2 f32 and bf16 and K1 turbo on its first 16
 solves, at the cluster size the checkout's chooser picks)
@@ -20,16 +21,22 @@ and E7's binding inputs at K2's shape
 (stages 1-3); E4 on phase 6d's inputs (the fleet's 12,288 update rows at
 W=2 with one and three fields, and at W=128): CUDA events back to back,
 device busy per call (torch.profiler, chip_smoke.py's ``_profile``) and
-the host time of one call until it returns, beside ``index_copy_``'s; E6
-dotgen on phase 6f's seeded [8, 512] tile, device busy per call, beside
-``einsum``'s.  Kernel times are CUDA events (chip_smoke.py's
+the host time of one call until it returns, beside ``index_copy_``'s; the
+four E5 probes on phase 6e's inputs at C1's batch shape (B=256, N=384)
+and ``torch.sum`` over the same points: CUDA events one cold-L2 call at a
+time (mean and median; the L2 evicted by a read of chip_smoke.py's
+``FLUSH_BYTES``), device busy and device operations per call, host time; the seven E6 probes on phase 6f's seeded [8, 512] tile,
+device busy and operations per call and host time, beside ``torch.sum``'s
+row sums broadcast and ``einsum``'s column totals.  Kernel times are CUDA
+events (chip_smoke.py's
 ``_events_ms``); host times are medians of ``time.perf_counter``.  K3's
 SASS (``cuobjdump -sass`` of the checkout's built library) gives the
 instructions its score loop runs per (particle, point) pair: the
 innermost loop holding MUFU.EX2, whose count is the pairs per trip.  Prints
 one JSON line per ROOT, with the card's name and power limit.
 ``--clusters`` adds, for checkouts whose wrappers take ``cluster=``, K1
-turbo and K2 bf16 at B=16 on every cluster size that fits.
+turbo and K2 bf16 at B=16 on every cluster size that fits; ``--probes``
+measures E5 and E6 alone.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ CLUSTERS = (1, 2, 4, 8)
 HOST_REPS = 300
 STEP_RUNS = 5
 PROFILE_CALLS = 20
+COLD_REPS = 20
 
 
 def _smi() -> str:
@@ -159,14 +167,12 @@ def _device_us(cs, fn):
     return cs._profile(lambda: [fn() for _ in range(PROFILE_CALLS)])[1] / PROFILE_CALLS * 1e3
 
 
-def _e4_e6(cs, dev, out):
-    """E4 (row_scatter beside index_copy_) and E6 dotgen (beside einsum)."""
+def _e4(cs, dev, out):
+    """E4 (row_scatter beside index_copy_)."""
     import numpy as np
     import torch
 
-    from ndtpso_slam_tpu_torch.experiments import mosaic_probe as mp
     from ndtpso_slam_tpu_torch.experiments import scatter_unique_ab as su
-    from ndtpso_slam_tpu_torch.ops import probes
     from ndtpso_slam_tpu_torch.ops import row_scatter as rsc
 
     ids, rs = su.fleet_ids()
@@ -182,13 +188,73 @@ def _e4_e6(cs, dev, out):
             out[f"{name}_{key}_ms"] = cs._events_ms(fn, 30)
             out[f"{name}_{key}_device_us"] = _device_us(cs, fn)
             out[f"{name}_{key}_host_us"] = _host_us(fn)[0]
-    x, _ = mp.inputs(dev, seed=5)
-    out["e6_dotgen_device_us"] = _device_us(cs, lambda: probes.mosaic_probe("dotgen", x, mp.N))
+
+
+def _cold_ms(fn, flush):
+    """CUDA events around each of COLD_REPS calls of fn, each after a read
+    of ``flush`` that evicts the L2 and hides the host's enqueue time (both
+    warmed first): (mean, median) ms per call.  The same code times every
+    checkout."""
+    import torch
+
+    flush.sum()
+    fn()
+    pairs = []
+    for _ in range(COLD_REPS):
+        flush.sum()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in pairs)
+    return sum(ms) / len(ms), ms[len(ms) // 2]
+
+
+def _split(cs, key, fn, out, flush=None):
+    """fn's device busy and device operations per call over PROFILE_CALLS
+    calls back to back, and its host time until it returns; with a
+    ``flush`` buffer, also its CUDA-event time one call at a time with a
+    cold L2 (mean and median)."""
+    fn()
+    if flush is not None:
+        out[f"{key}_cold_ms"], out[f"{key}_cold_median_ms"] = _cold_ms(fn, flush)
+    ops, busy, _ = cs._profile(lambda: [fn() for _ in range(PROFILE_CALLS)])
+    out[f"{key}_device_us"] = busy / PROFILE_CALLS * 1e3
+    out[f"{key}_device_ops"] = ops / PROFILE_CALLS
+    out[f"{key}_host_us"] = _host_us(fn)[0]
+
+
+def _e5_e6(cs, dev, out):
+    """The E5 probes at C1's batch shape beside torch.sum over the points,
+    and the E6 probes on the seeded tile beside torch.sum's broadcast row
+    sums and einsum's column totals."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.experiments import io_probe as iop
+    from ndtpso_slam_tpu_torch.experiments import mosaic_probe as mp
+    from ndtpso_slam_tpu_torch.ops import probes
+
+    b, n = cs.IO_WIDE
+    inp = iop.inputs(dev, b, n)
+    flush = torch.zeros(cs.FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    for name in probes.IO_PROBES:
+        args = iop.probe_args(name, inp)
+        _split(cs, f"e5_{name}", lambda: probes.io_probe(name, *args), out, flush)
+    table = inp["pts"].view(b, 1, 8, n)
+    _split(cs, "e5_torch_sum", lambda: torch.sum(table, dim=(1, 3)), out, flush)
+    del inp, table, flush
+    x, xi = mp.inputs(dev, seed=5)
+    for name in probes.MOSAIC_PROBES:
+        arg = xi if name == "threefry" else x
+        _split(cs, f"e6_{name}", lambda: probes.mosaic_probe(name, arg, mp.N), out)
+    _split(cs, "e6_torch_sum", lambda: torch.sum(x, dim=1, keepdim=True).expand_as(x), out)
     head = x[:, :mp.N]
     out["einsum_device_us"] = _device_us(cs, lambda: torch.einsum("rn,rq->q", head, x))
 
 
-def measure(root: str, clusters: bool) -> dict:
+def measure(root: str, clusters: bool, probes_only: bool) -> dict:
     """The numbers of one checkout, imported from root."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -208,11 +274,15 @@ def measure(root: str, clusters: bool) -> dict:
     from ndtpso_slam_tpu_torch.ops import probes
     from ndtpso_slam_tpu_torch.ops import row_scatter as rsc
 
-    _build.build(rl.LIB, ro.LIB, rb.LIB, sc.LIB, rsc.LIB, probes.LIB)  # before any timing
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     out = {"root": root, "card": _smi()}
+    if probes_only:
+        _build.build(probes.LIB)
+        _e5_e6(cs, dev, out)
+        return out
+    _build.build(rl.LIB, ro.LIB, rb.LIB, sc.LIB, rsc.LIB, probes.LIB)  # before any timing
     for key in ("scans_s", "step_p50_ms", "step_p95_ms"):
         out[key] = []
     for _ in range(STEP_RUNS):
@@ -226,6 +296,11 @@ def measure(root: str, clusters: bool) -> dict:
     args = _k1_next_solve(cs, node, lg)
     out["k1_b1_ms"] = cs._events_ms(lambda: rl.pso_rollout_local(*args), 50)
     out["k1_b1_host_us"], out["k1_b1_call_sync_us"] = _host_us(lambda: rl.pso_rollout_local(*args))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cs.phase_main_profile(node, lg)
+    out["step_kernels_per_scan"] = float(
+        re.search(r"([\d.]+) device kernels per scan", buf.getvalue()).group(1))
 
     world = cs.batch_world(256, dev)
     packed = cs._packed(world)
@@ -248,20 +323,21 @@ def measure(root: str, clusters: bool) -> dict:
             lambda: rb.rollout_bisect(s, *args, population=4096, iterations=50), 3)
     if clusters and hasattr(ro, "smem_bytes"):
         _cluster_times(cs, rl, ro, small, out)
-    _e4_e6(cs, dev, out)
+    _e4(cs, dev, out)
+    _e5_e6(cs, dev, out)
     return out
 
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    clusters = "--clusters" in argv
-    argv = [a for a in argv if a != "--clusters"]
+    flags = [a for a in argv if a in ("--clusters", "--probes")]
+    argv = [a for a in argv if a not in flags]
     if argv[:1] == ["--one"]:
-        print(json.dumps(measure(argv[1], clusters)))
+        print(json.dumps(measure(argv[1], "--clusters" in flags, "--probes" in flags)))
         return 0
     for root in map(os.path.abspath, argv):
         cmd = [sys.executable, os.path.abspath(__file__), "--one", root]
-        res = subprocess.run(cmd + (["--clusters"] if clusters else []), cwd=root,
+        res = subprocess.run(cmd + flags, cwd=root,
                              capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stdout[-4000:] + res.stderr[-4000:], file=sys.stderr)

@@ -1491,6 +1491,7 @@ def _cold_ms(fn, reps):
     import torch
 
     flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    flush.sum()  # warm: the first reduction launch may load its module
     fn()
     pairs = []
     for _ in range(reps):
@@ -1531,6 +1532,37 @@ def _time_split(fn, reps, kernels):
 
 def _sum_ok(got, want, magnitudes):
     return bool(((got - want).abs() <= SUM_RTOL * want.abs() + SUM_ATOL * magnitudes).all())
+
+
+def _io_host_split(name, args, got, library):
+    """6e's k_min / k_smem at C1's shape: the host time per call beside
+    torch.sum's, and the device operations per call, which must all be the
+    probe's kernel, one a call (the profiler may drop records late in a
+    run, never add them); k_smem also with its keys as int32 words, whose
+    result must be the same bits."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.ops import probes
+
+    call = lambda: probes.io_probe(name, *args)
+    many = lambda: [call() for _ in range(PROFILE_CALLS)]
+    ops, own = _profile(many)[0], _profile(many, "io_kernel_warp")[0]
+    check(0 < ops == own <= PROFILE_CALLS,
+          f"io_probe {name}: {ops} device operations in {PROFILE_CALLS} calls, {own} its kernel's")
+    out = dict(host_us=_host_us(call), library_host_us=_host_us(library),
+               device_ops=ops / PROFILE_CALLS)
+    words = ""
+    if name == "smem":
+        pts, keys = args
+        k32 = (keys - (keys >= 2**31).to(torch.int64) * 2**32).to(torch.int32)
+        check(torch.equal(probes.io_probe(name, pts, k32), got),
+              "io_probe smem: int32 key words give other bits than int64")
+        words = "; int32 key words give the same bits"
+    print(f"[phase 6e] {name} (B={args[0].shape[0]} N={args[0].shape[-1]}): host "
+          f"{out['host_us']:.3f} us per call, torch.sum {out['library_host_us']:.3f} us; device "
+          f"operations recorded per call {out['device_ops']:.2f}, every one io_kernel_warp"
+          f"{words}")
+    return out
 
 
 def phase_io_probe(dev):
@@ -1580,6 +1612,8 @@ def phase_io_probe(dev):
                   f"{err:.3e}; kernel {ms:.4f} ms ({how}; {nbytes / ms / 1e6:.1f} GB/s; device "
                   f"busy {dev_ms:.4f} ms per call back to back), plain {plain_ms:.4f} ms, "
                   f"torch.sum {lib_ms:.4f} ms, bound {bms:.5f} ms ({by}, {100 * bms / ms:.1f}% of it)")
+            if (b, n) == IO_WIDE and name in ("min", "smem"):
+                variants[key].update(_io_host_split(name, args, got, library))
     ref = f"sten4_b{b_w}_n{n_w}"
     return _study_entry("io_probe", "probes.cu", "experiments/io_probe.py:53", launches, variants,
                         ref, library_ms=variants[ref]["library_ms"])
@@ -1653,6 +1687,11 @@ def phase_mosaic_probe(dev):
                                  bound_by=by)
             lib = ("" if library is None else f", library {lib_ms:.4f} ms (device busy "
                    f"{lib_dev_ms:.4f} ms per call)")
+            if name == "bcast_out":
+                host = _host_us(lambda: probes.mosaic_probe(name, arg, mp.N))
+                lib_host = _host_us(library)
+                variants[key].update(host_us=host, library_host_us=lib_host)
+                lib += f"; host {host:.3f} us per call, torch.sum {lib_host:.3f} us"
             print(f"[phase 6f] {key} ([8, {x.shape[1]}]): max |kernel - plain| {err:.3e}"
                   f"{' (bit-equal)' if name in MOSAIC_EXACT else ''}; kernel {ms:.4f} ms (device "
                   f"busy {dev_ms:.4f} ms per call), plain {plain_ms:.4f} ms{lib}, bound "

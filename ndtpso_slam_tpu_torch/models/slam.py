@@ -154,8 +154,11 @@ def make_cost_fn(snap: ndt_map.MapSnapshot, scan: Scan, cfg: SlamConfig, guess=N
 def _align_rollout(key, guess, deviation, snap, scan, cfg: SlamConfig) -> PsoResult:
     """One B = 1 solve through the whole-solve kernel of a ``rollout*``
     cost mode (``ops/rollout.py:solve_rollout_mode``)."""
-    # A host-to-device copy that does not wait for the stream.
-    keys = torch.tensor([[key[0], key[1]]], dtype=torch.int64).to(guess.device, non_blocking=True)
+    # The key's u32 words as the kernel takes them, int32 bit patterns, made
+    # on the host: one host-to-device copy that does not wait for the
+    # stream, and no conversion on the device.
+    keys = (torch.tensor([[key[0], key[1]]], dtype=torch.int64) & 0xFFFFFFFF).to(torch.int32)
+    keys = keys.to(guess.device, non_blocking=True)
     pose, c = solve_rollout_mode(
         cfg.cost_mode, keys, guess[None], deviation[None], snap, scan.points[None],
         scan.valid[None], cfg.map, cfg.pso, cfg.solver_early_exit,

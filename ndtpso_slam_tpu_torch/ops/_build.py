@@ -105,7 +105,13 @@ def load(lib: KernelLib) -> ctypes.CDLL:
 
 def u32_words(keys, device):
     """Key words [B, 2] as the kernels take them: u32 words carried as their
-    int32 bit patterns, contiguous on ``device``."""
+    int32 bit patterns, contiguous on ``device``.  An int32 tensor already
+    contiguous there is returned as it is, with no device operation; other
+    integer words (int64, uint32) keep their low 32 bits."""
+    device = torch.device(device)
+    if (keys.dtype == torch.int32 and keys.is_contiguous() and keys.device.type == device.type
+            and (device.index is None or keys.device.index == device.index)):
+        return keys
     return (keys.to(device).to(torch.int64) & 0xFFFFFFFF).to(torch.int32).contiguous()
 
 

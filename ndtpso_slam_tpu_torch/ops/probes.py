@@ -10,8 +10,10 @@ same functions, so each kernel is held against its plain version.
 
 Each wrapper takes the plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device; it never falls back from one to the
-other.  ``io_probe.LAUNCHES`` and ``mosaic_probe.LAUNCHES`` count kernel
-launches.  The library is built by ``ops/_build.py``.
+other.  A call on the card is one launch on the current stream; the C entry
+makes the device current itself.  ``io_probe.LAUNCHES`` and
+``mosaic_probe.LAUNCHES`` count kernel launches.  The library is built by
+``ops/_build.py``.
 """
 
 from __future__ import annotations
@@ -29,13 +31,15 @@ ROWS = 8  # the TPU tile's sublanes
 LANES = 128  # the TPU output tile's lanes
 N_DOT = 256  # k_dotgen's contraction length (mosaic_probe.py's N)
 THREEFRY_KEY = (123, 456)
+# smem's key dtypes: u32 words per element (an int64's low word comes first).
+KEY_WORDS = {torch.int64: 2, torch.int32: 1, torch.uint32: 1}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.ndt_io_probe.argtypes = [i, vp, vp, vp, i, i, vp]
+    lib.ndt_io_probe.argtypes = [i, vp, vp, ctypes.c_longlong, vp, i, i, i, vp]
     lib.ndt_io_probe.restype = i
-    lib.ndt_mosaic_probe.argtypes = [i, vp, vp, vp, i, i, vp]
+    lib.ndt_mosaic_probe.argtypes = [i, vp, vp, vp, i, i, i, vp]
     lib.ndt_mosaic_probe.restype = i
     lib.ndt_mosaic_max_dot_n.argtypes = []
     lib.ndt_mosaic_max_dot_n.restype = i
@@ -44,8 +48,10 @@ def _bind(lib: ctypes.CDLL) -> None:
 LIB = _build.KernelLib("probes", "probes.cu", _bind)
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
+def _stream(index):
+    """The raw handle of device ``index``'s current stream, without building
+    a torch.cuda.Stream."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 # ------------------------------------------------------------- io_probe
@@ -64,6 +70,8 @@ def _io_check(name, src, keys):
     if name == "smem":
         if keys is None or tuple(keys.shape) != (b, 2) or keys.device != src.device:
             raise ValueError(f"smem needs keys [{b}, 2] on {src.device}")
+        if keys.dtype not in KEY_WORDS:
+            raise TypeError(f"smem's keys must be int64, int32 or uint32 words, not {keys.dtype}")
     return b, n
 
 
@@ -96,8 +104,9 @@ def io_probe(name: str, src: torch.Tensor, keys: torch.Tensor = None) -> torch.T
     ``out[b, r, :]`` the sum over the N points of
 
     * ``min``: ``pts[b, r]`` (src = pts [B, 8, N]);
-    * ``smem``: the same plus ``f32(int32(keys[b, 0] >> 8))`` (keys [B, 2]
-      u32 words);
+    * ``smem``: the same plus ``f32(int32(k >> 8))``, k the u32 word of
+      ``keys[b, 0]`` (keys [B, 2]: int64 words, whose low 32 bits are taken,
+      or int32 / uint32 bit patterns, read as given);
     * ``sten4``: ``sum_k sten[b, k, r]`` over the 25 stencil offsets, in
       order (src = sten [B, 25, 8, N]);
     * ``sten3``: the same through the [B, 200, N] view (src = that view).
@@ -109,13 +118,14 @@ def io_probe(name: str, src: torch.Tensor, keys: torch.Tensor = None) -> torch.T
         raise ValueError(f"unsupported device {src.device}")
     b, n = _io_check(name, src, keys)
     src = src.contiguous()
-    k32 = _build.u32_words(keys, src.device) if name == "smem" else None
+    key_ptr, key_stride = None, 0
+    if name == "smem":  # keys[b, 0]'s first u32 word, in the caller's dtype
+        key_ptr, key_stride = keys.data_ptr(), keys.stride(0) * KEY_WORDS[keys.dtype]
     out = torch.empty((b, ROWS, LANES), dtype=torch.float32, device=src.device)
     lib = _build.load(LIB)
-    with torch.cuda.device(src.device):
-        err = lib.ndt_io_probe(IO_PROBES.index(name), src.data_ptr(),
-                               None if k32 is None else k32.data_ptr(), out.data_ptr(), b, n,
-                               _stream(src.device))
+    index = src.get_device()
+    err = lib.ndt_io_probe(IO_PROBES.index(name), src.data_ptr(), key_ptr, key_stride,
+                           out.data_ptr(), b, n, index, _stream(index))
     _build.check_launch(lib, err, f"io_probe {name}")
     io_probe.LAUNCHES += 1
     return out
@@ -214,11 +224,10 @@ def mosaic_probe(name: str, x: torch.Tensor, n_dot: int = N_DOT) -> torch.Tensor
     else:
         xf, xi = x.contiguous(), None
     out = torch.empty((ROWS, p), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.ndt_mosaic_probe(MOSAIC_PROBES.index(name),
-                                   None if xf is None else xf.data_ptr(),
-                                   None if xi is None else xi.data_ptr(), out.data_ptr(), p,
-                                   n_dot if name == "dotgen" else 1, _stream(x.device))
+    index = x.get_device()
+    err = lib.ndt_mosaic_probe(MOSAIC_PROBES.index(name), None if xf is None else xf.data_ptr(),
+                               None if xi is None else xi.data_ptr(), out.data_ptr(), p,
+                               n_dot if name == "dotgen" else 1, index, _stream(index))
     _build.check_launch(lib, err, f"mosaic_probe {name}")
     mosaic_probe.LAUNCHES += 1
     return out

@@ -245,3 +245,54 @@ def test_load_laser_rejects_too_many_beams():
     with pytest.raises(ValueError, match="max_beams"):
         tscan.load_laser(np.ones(600, np.float32), -np.pi, 0.01, 30.0,
                          tcfg.ScanConfig(max_beams=512), device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["int64", "uint32"])
+def test_u32_words_masks_other_integer_words(dtype):
+    from ndtpso_slam_tpu_torch.ops import _build
+
+    words = torch.tensor([[0xFFFFFFFF, 0x80000000], [0x7FFFFFFF, 5]], dtype=torch.int64)
+    got = _build.u32_words(words.to(getattr(torch, dtype)), "cpu")
+    assert got.dtype == torch.int32 and got.is_contiguous()
+    assert got.tolist() == [[-1, -2**31], [2**31 - 1, 5]]
+    assert torch.equal(got.to(torch.int64) & 0xFFFFFFFF, words)
+
+
+def test_u32_words_returns_int32_words_on_the_device_as_they_are():
+    from ndtpso_slam_tpu_torch.ops import _build
+
+    words = torch.tensor([[-1, 7], [-2**31, 2**31 - 1]], dtype=torch.int32)
+    assert _build.u32_words(words, "cpu") is words
+    assert _build.u32_words(words, torch.device("cpu")) is words
+    strided = words.t()  # not contiguous: copied, the same words
+    got = _build.u32_words(strided, "cpu")
+    assert got is not strided and got.is_contiguous() and torch.equal(got, strided)
+
+
+def test_align_rollout_key_words_are_the_int64_words_low_bits(monkeypatch):
+    """_align_rollout hands the kernel int32 bit patterns made on the host:
+    the low 32 bits of the int64 words it made before, so u32_words needs
+    no device operation and the draws stay bit-equal."""
+    from types import SimpleNamespace
+
+    from ndtpso_slam_tpu_torch.models import slam as tslam
+    from ndtpso_slam_tpu_torch.ops import _build
+
+    seen = []
+
+    def solve(mode, keys, guesses, *args, **kwargs):
+        seen.append(keys)
+        return guesses.clone(), torch.zeros(1)
+
+    monkeypatch.setattr(tslam, "solve_rollout_mode", solve)
+    cfg = SimpleNamespace(cost_mode="rollout_local", map=None, pso=None, solver_early_exit=0)
+    scan = SimpleNamespace(points=torch.zeros(4, 2), valid=torch.ones(4, dtype=torch.bool))
+    guess = torch.zeros(3)
+    keys = KEYS + [trng.derive_key(k, 7) for k in KEYS] + [(2**31, 2**31 - 1)]
+    for key in keys:
+        tslam._align_rollout(key, guess, guess, None, scan, cfg)
+        old = torch.tensor([[key[0], key[1]]], dtype=torch.int64)
+        got = seen[-1]
+        assert got.dtype == torch.int32 and _build.u32_words(got, "cpu") is got
+        assert torch.equal(got, _build.u32_words(old, "cpu"))
+        assert torch.equal(got.to(torch.int64) & 0xFFFFFFFF, old & 0xFFFFFFFF)

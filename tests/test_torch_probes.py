@@ -118,6 +118,103 @@ def test_io_probe_smem_key_term_is_exact():
     assert got[:, 0, 0].tolist() == [16777215.0, 8388608.0, 0.0]
 
 
+@pytest.mark.parametrize("dtype", ["int64", "int32", "uint32"])
+def test_io_probe_smem_key_term_in_each_key_dtype(dtype):
+    """The plain key term takes k0's u32 word in each dtype the kernel reads
+    as given: int64 words (their low 32 bits, also of a negative int64) and
+    int32 / uint32 bit patterns, keys >= 2^31 included."""
+    words = [0xFFFFFFFF, 0x80000000, 0xDEADBEEF, 255, 0x7FFFFFFF]
+    inp = tio.inputs(CPU, b=len(words), n=3, seed=4)
+    inp["pts"].zero_()
+    k64 = torch.tensor([[w, 7] for w in words], dtype=torch.int64)
+    keys = {"int64": k64 - (k64 >= 2**31).to(torch.int64) * 2**32 * torch.tensor([1, 0]),
+            "int32": k64.to(torch.int32),  # the bit patterns, wrapped
+            "uint32": k64.to(torch.uint32)}[dtype]
+    got = probes.io_probe("smem", inp["pts"], keys)
+    want = [float(np.int32(w >> 8)) for w in words]
+    assert (got == torch.tensor(want)[:, None, None]).all()
+
+
+def test_io_probe_smem_rejects_keys_of_another_dtype():
+    inp = tio.inputs(CPU, b=2, n=4)
+    with pytest.raises(TypeError, match="int64, int32 or uint32"):
+        probes.io_probe("smem", inp["pts"], inp["keys"].to(torch.float64))
+    with pytest.raises(TypeError, match="int64, int32 or uint32"):
+        probes.io_probe("smem", inp["pts"], inp["keys"].to(torch.int16))
+
+
+def _warp_row_sums(rows, vec):
+    """csrc/probes.cu's warp_row_sum in float32, step for step, over the
+    last axis of rows [..., n]: lane l adds its terms in order (vec: the
+    float4s l, l + 32, ..., each one's four components in order; else the
+    elements l, l + 32, ...), then a butterfly over the 32 lanes."""
+    rows = rows.astype(np.float32)
+    n = rows.shape[-1]
+    lanes = np.zeros(rows.shape[:-1] + (32,), np.float32)
+    if vec:
+        quads = rows.reshape(rows.shape[:-1] + (n // 4, 4))
+        for i in range(0, n // 4, 32):
+            chunk = quads[..., i:i + 32, :]
+            w = chunk.shape[-2]
+            for c in range(4):
+                lanes[..., :w] = lanes[..., :w] + chunk[..., c]
+    else:
+        for i in range(0, n, 32):
+            chunk = rows[..., i:i + 32]
+            lanes[..., :chunk.shape[-1]] = lanes[..., :chunk.shape[-1]] + chunk
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., np.arange(32) ^ off]
+    return lanes[..., 0]
+
+
+def _rows(shape, tile, seed=3):
+    """Rows to sum: ones, seeded U(-8, 8), or rows whose second half is
+    minus the first plus noise of 1e-6, and an odd last term of 1e-6 (their
+    sums nearly 0)."""
+    if tile == "ones":
+        return np.ones(shape, np.float32)
+    rs = np.random.RandomState(seed)
+    x = rs.uniform(-8, 8, shape).astype(np.float32)
+    if tile == "cancelling":
+        half = shape[-1] // 2
+        x[..., half:2 * half] = (-x[..., :half] + rs.uniform(-1e-6, 1e-6, x[..., :half].shape)
+                                 ).astype(np.float32)
+        x[..., 2 * half:] = 1e-6
+    return x
+
+
+@pytest.mark.parametrize("tile", ["ones", "seeded", "cancelling"])
+@pytest.mark.parametrize("n", [77, 256, 384])
+def test_io_warp_row_sum_order_fits_the_sum_tolerance(n, tile):
+    """k_min's and k_smem's warp per row (float4 loads where n % 4 == 0 and
+    the row is aligned, scalar loads otherwise) against the plain version,
+    within the sum-order tolerance the card holds the kernel to."""
+    pts = _rows((3, 8, n), tile)
+    if tile == "cancelling":
+        assert np.abs(pts.sum(axis=-1)).max() < 1e-3
+    src = torch.from_numpy(pts)
+    want = probes.io_probe_reference("min", src)[..., 0].numpy()
+    atol = SUM_ATOL * probes.io_magnitudes("min", src)[..., 0].numpy()
+    for vec in ([True, False] if n % 4 == 0 else [False]):
+        got = _warp_row_sums(pts, vec)
+        assert (np.abs(got - want) <= SUM_RTOL * np.abs(want) + atol).all()
+
+
+@pytest.mark.parametrize("tile", ["ones", "seeded", "cancelling"])
+@pytest.mark.parametrize("p", [512, 1000])
+def test_bcast_out_warp_row_sum_order_fits_the_sum_tolerance(p, tile):
+    """bcast_out's warps, each summing a whole row (float4 loads; scalar on
+    a misaligned tile), against the plain version within the unchanged
+    tolerance."""
+    x = _rows((8, p), tile, seed=p)
+    xt = torch.from_numpy(x)
+    want = probes.mosaic_probe_reference("bcast_out", xt).numpy()
+    atol = SUM_ATOL * probes.mosaic_magnitudes("bcast_out", xt).numpy()
+    for vec in (True, False):
+        got = np.broadcast_to(_warp_row_sums(x, vec)[:, None], x.shape)
+        assert (np.abs(got - want) <= SUM_RTOL * np.abs(want) + atol).all()
+
+
 def test_io_probe_rejects_bad_inputs():
     inp = tio.inputs(CPU)
     with pytest.raises(ValueError, match="unknown io probe"):
@@ -284,8 +381,33 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _device_ops(fn):
+    """fn's device operations (kernels, copies, fills) under torch.profiler,
+    by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def _misaligned(t):
+    """A contiguous copy of t that starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0
+    return view
+
+
+IO_SHAPES = [(1, 1), (3, 77), (2, 256), (16, 384), (256, 384), (5, 1001)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,n", [(2, 256), (16, 384), (3, 77)])
+@pytest.mark.parametrize("b,n", IO_SHAPES)
 @pytest.mark.parametrize("name", probes.IO_PROBES)
 def test_io_probe_kernel_matches_plain_on_gpu(cuda_device, name, b, n):
     inp = tio.inputs(cuda_device, b=b, n=n, seed=2)
@@ -297,6 +419,68 @@ def test_io_probe_kernel_matches_plain_on_gpu(cuda_device, name, b, n):
     want = probes.io_probe_reference(name, *args)
     atol = SUM_ATOL * probes.io_magnitudes(name, args[0])
     assert ((got - want).abs() <= SUM_RTOL * want.abs() + atol).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key_dtype", ["int64", "int32", "uint32"])
+@pytest.mark.parametrize("b,n", IO_SHAPES)
+def test_io_warp_kernel_layouts_keys_and_nan_on_gpu(cuda_device, b, n, key_dtype):
+    """k_min and k_smem: the points aligned and 4 bytes off (float4 and
+    scalar loads), a NaN row, keys >= 2^31 in each dtype read as given; one
+    launch and one device operation per call, the key term exact."""
+    inp = tio.inputs(cuda_device, b=b, n=n, seed=b + n)
+    keys = inp["keys"] | (torch.arange(b, device=cuda_device)[:, None] % 2) << 31
+    if key_dtype == "int32":  # the u32 words' bit patterns
+        keys = (keys - (keys >= 2**31).to(torch.int64) * 2**32).to(torch.int32)
+    elif key_dtype == "uint32":
+        keys = keys.to(torch.uint32)
+    pts = inp["pts"].clone()
+    pts[b - 1, 3, n // 2] = float("nan")
+    for src in (pts, _misaligned(pts)):
+        for name in ("min", "smem"):
+            args = (src, keys) if name == "smem" else (src,)
+            before = probes.io_probe.LAUNCHES
+            ops = _device_ops(lambda: probes.io_probe(name, *args))
+            assert probes.io_probe.LAUNCHES == before + 1
+            assert sum(ops.values()) == 1 and all("io_kernel_warp" in k for k in ops), ops
+            got = probes.io_probe(name, *args)
+            want = probes.io_probe_reference(name, *args)
+            nan = torch.isnan(want)
+            assert nan[b - 1, 3].all() and nan.sum() == 128
+            assert torch.equal(torch.isnan(got), nan)
+            atol = SUM_ATOL * probes.io_magnitudes(name, src)
+            ok = (got - want).abs() <= SUM_RTOL * want.abs() + atol
+            assert (ok | nan).all()
+        zero = torch.zeros_like(src)
+        term = probes.io_probe("smem", zero, keys)[:, 0, 0].cpu()
+        k0 = keys[:, 0].to(torch.int64).cpu() & 0xFFFFFFFF
+        assert torch.equal(term, (k0 >> 8).to(torch.int32).to(torch.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 3, 512, 1000, 4096])
+def test_mosaic_bcast_out_kernel_matches_plain_on_gpu(cuda_device, p):
+    """bcast_out's grid of warps at widths below, at and above one warp's
+    128 columns, P % 4 != 0 (scalar stores), on ones, a seeded tile and a
+    misaligned copy (scalar loads), and with a NaN in one row; one launch
+    and one device operation per call."""
+    ones, seeded = tmo.inputs(cuda_device, p=p)[0], tmo.inputs(cuda_device, p=p, seed=p)[0]
+    nan = seeded.clone()
+    nan[5, p // 2] = float("nan")
+    for x in (ones, seeded, _misaligned(seeded), nan):
+        before = probes.mosaic_probe.LAUNCHES
+        ops = _device_ops(lambda: probes.mosaic_probe("bcast_out", x))
+        assert probes.mosaic_probe.LAUNCHES == before + 1
+        assert sum(ops.values()) == 1 and all("bcast_out" in k for k in ops), ops
+        got = probes.mosaic_probe("bcast_out", x)
+        want = probes.mosaic_probe_reference("bcast_out", x)
+        isnan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), isnan)
+        assert isnan.sum() == (p if x is nan else 0)
+        atol = SUM_ATOL * probes.mosaic_magnitudes("bcast_out", x)
+        assert (((got - want).abs() <= SUM_RTOL * want.abs() + atol) | isnan).all()
+        rows = ~isnan.any(dim=1)
+        assert (got[rows] == got[rows, :1]).all()
 
 
 @pytest.mark.gpu
