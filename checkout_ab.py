@@ -1,9 +1,9 @@
 """Times the whole-solve kernels K1 and K2, the scoring kernel K3, E7's
-stages 1-3, the scan.launch step, K1's host time, the row scatter E4 and
-the probes E5 and E6 of one or more checkouts of this repository, on one
-GPU.
+stages 1-3, the scan.launch step, K1's host time, the row scatter E4, the
+probes E5 and E6 and the scoring studies E1-E3 of one or more checkouts of
+this repository, on one GPU.
 
-    python checkout_ab.py ROOT [ROOT ...] [--clusters] [--probes]
+    python checkout_ab.py ROOT [ROOT ...] [--clusters] [--probes] [--studies]
 
 Each ROOT is a checkout (its package and its chip_smoke.py).  Each runs in a
 process of its own that imports only from its ROOT, in the order given, so an
@@ -37,6 +37,21 @@ one JSON line per ROOT, with the card's name and power limit.
 ``--clusters`` adds, for checkouts whose wrappers take ``cluster=``, K1
 turbo and K2 bf16 at B=16 on every cluster size that fits; ``--probes``
 measures E5 and E6 alone.
+
+``--studies`` measures the kernels of ``csrc/score_variants.cu`` alone, at
+chip_smoke.py's phase 6a-6c shapes: E1's six configurations (B=64, N=384,
+P=4096), E2's nine (the population call's operands of phase 6c, B=32,
+padded to 16 features) and E3's five variants (B=64, I=50), each as CUDA
+events back to back (E1 and E2 over 20 calls, E3 over 3) and device busy
+and device operations per call (torch.profiler over PROFILE_CALLS calls, 5
+for E3), E1's and E2's host time per call until it returns, and E3's
+launch geometry where the checkout's wrapper records it
+(``score_block.LAST``: cluster size, CTAs); the ptxas lines of the
+library's instantiations (registers, stack, spills; its build log) and
+each instantiation's SASS loop mix; and, as the controls that must not
+move, K2 f32 at B=256 and at B=16, K1 turbo at B=16, K3 at B=256 (and its
+SASS loop) and E7's stage 3 at K2's shape (CUDA events).  ~60 s per
+checkout.
 """
 
 from __future__ import annotations
@@ -89,16 +104,22 @@ def _loop_mix(sass: str) -> dict:
                 mix={k: round(v / exps, 3) for k, v in mix.most_common()})
 
 
-def _k3_sass(sc, _build) -> dict:
-    """K3's score-loop mix per instantiation, from its built library."""
+def _sass_mixes(lib, _build, kernel) -> dict:
+    """The score-loop mix of each instantiation of ``kernel`` (a substring
+    of its name) in a built library, by its name from ``kernel`` on."""
     out = subprocess.run([os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"), "-sass",
-                          str(sc.LIB.path())], capture_output=True, text=True, check=True).stdout
+                          str(lib.path())], capture_output=True, text=True, check=True).stdout
     mixes = {}
     for fn in re.split(r"\n\s*Function : ", out)[1:]:
         name = fn.split("\n", 1)[0].strip()
-        if "score_kernel" in name:
-            mixes[re.sub(r".*score_kernel", "score_kernel", name)] = _loop_mix(fn)
+        if kernel in name:
+            mixes[re.sub(r".*" + kernel, kernel, name)] = _loop_mix(fn)
     return mixes
+
+
+def _k3_sass(sc, _build) -> dict:
+    """K3's score-loop mix per instantiation, from its built library."""
+    return _sass_mixes(sc.LIB, _build, "score_kernel")
 
 
 def _k1_next_solve(cs, node, lg):
@@ -254,7 +275,87 @@ def _e5_e6(cs, dev, out):
     out["einsum_device_us"] = _device_us(cs, lambda: torch.einsum("rn,rq->q", head, x))
 
 
-def measure(root: str, clusters: bool, probes_only: bool) -> dict:
+def _study_split(cs, key, fn, reps, calls, out):
+    """fn's CUDA-event time over reps calls back to back, and its device
+    busy and device operations per call over ``calls`` calls."""
+    out[f"{key}_ms"] = cs._events_ms(fn, reps)
+    ops, busy, _ = cs._profile(lambda: [fn() for _ in range(calls)])
+    out[f"{key}_device_ms"] = busy / calls
+    out[f"{key}_device_ops"] = ops / calls
+
+
+def _e2_operands(dev):
+    """Phase 6c's population call: binds at the guesses and phi of the
+    initial poses, padded to 16 features, and its mask."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.experiments import pallas_variants as pv
+    from ndtpso_slam_tpu_torch.models import cost, pso
+    from ndtpso_slam_tpu_torch.ops import score_variants as sv
+
+    wd = pv.world(dev)
+    _, u_p = pso._batch_draws(wd["keys"], None, pv.P, torch.float32, dev, "threefry")
+    poses = wd["guesses"][:, None, :] + (2.0 * u_p - 1.0) * wd["devs"][:, None, :]
+    bound = cost.bind_points(wd["guesses"], wd["snaps"], wd["points"], wd["valid"],
+                             wd["map_cfg"])
+    phit = sv.pad16(cost.pose_features_t(poses, bound.bind_pose), 1).contiguous()
+    return phit, sv.pad16(bound.w, 2).contiguous(), bound.mask.contiguous()
+
+
+def studies(cs, dev, out):
+    """E1-E3 (csrc/score_variants.cu) and the controls K1, K2, K3, E7."""
+    from ndtpso_slam_tpu_torch.experiments import kernel_variants as kv
+    from ndtpso_slam_tpu_torch.experiments import pallas_variants as pv
+    from ndtpso_slam_tpu_torch.experiments import rollout_bisect as rbx
+    from ndtpso_slam_tpu_torch.experiments import rollout_score_variants as rsv
+    from ndtpso_slam_tpu_torch.ops import _build
+    from ndtpso_slam_tpu_torch.ops import rollout as ro
+    from ndtpso_slam_tpu_torch.ops import rollout_bisect as rb
+    from ndtpso_slam_tpu_torch.ops import rollout_local as rl
+    from ndtpso_slam_tpu_torch.ops import score as sc
+    from ndtpso_slam_tpu_torch.ops import score_variants as sv
+
+    _build.build(sv.LIB, rl.LIB, ro.LIB, rb.LIB, sc.LIB)  # before any timing
+    log = sv.LIB.path().with_suffix(".log")
+    out["ptxas"] = cs._ptxas_summary(log.read_text() if log.exists() else "")
+    out["sass"] = {k: _sass_mixes(sv.LIB, _build, k) for k in ("variant_kernel", "block_kernel")}
+    phit, w, mask = kv.inputs(dev)
+    for name, zroute, reduce, tile in kv.CONFIGS:
+        key = "e1_" + name.split()[0]
+        fn = lambda: sv.score_variants(phit, w, mask, zroute, reduce, tile)
+        _study_split(cs, key, fn, 20, PROFILE_CALLS, out)
+        out[f"{key}_host_us"] = _host_us(fn)[0]
+    phit, w, mask = _e2_operands(dev)
+    for name, (zroute, reduce) in pv.VARIANTS.items():
+        for tile in pv.TILES:
+            key = f"e2_{name}_t{tile}"
+            fn = lambda: sv.score_variants(phit, w, mask, zroute, reduce, tile)
+            _study_split(cs, key, fn, 20, PROFILE_CALLS, out)
+            out[f"{key}_host_us"] = _host_us(fn)[0]
+    phit, w = rsv.inputs(dev)
+    for name in rsv.VARIANTS:
+        _study_split(cs, f"e3_{name}", lambda: sv.score_block(phit, w, rsv.I, name), 3, 5, out)
+        if getattr(sv.score_block, "LAST", None) is not None:
+            out[f"e3_{name}_launch"] = dict(sv.score_block.LAST)
+    del phit, w, mask
+    world = cs.batch_world(256, dev)
+    packed = cs._packed(world)
+    out["k2_f32_b256_ms"] = cs._events_ms(lambda: ro.pso_rollout(*packed), 3)
+    ops = cs._score_inputs(world, 256)
+    out["k3_b256_ms"] = cs._events_ms(lambda: sc.fused_bound_scores(*ops), 20)
+    out["k3_sass"] = _k3_sass(sc, _build)
+    del packed, ops
+    small = cs._first(world, 16)
+    ps, pl = cs._packed(small), cs._packed(small, local=True)
+    out["k2_f32_b16_ms"] = cs._events_ms(lambda: ro.pso_rollout(*ps), 3)
+    out["k1_turbo_b16_ms"] = cs._events_ms(lambda: rl.pso_rollout_local(*pl, rng_mode="native"), 3)
+    del ps, pl
+    args = rbx.binding_inputs(dev, b=256, n=384)
+    out["e7_stage3_ms"] = cs._events_ms(
+        lambda: rb.rollout_bisect(3, *args, population=4096, iterations=50), 3)
+
+
+def measure(root: str, clusters: bool, probes_only: bool, studies_only: bool = False) -> dict:
     """The numbers of one checkout, imported from root."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -278,6 +379,9 @@ def measure(root: str, clusters: bool, probes_only: bool) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     out = {"root": root, "card": _smi()}
+    if studies_only:
+        studies(cs, dev, out)
+        return out
     if probes_only:
         _build.build(probes.LIB)
         _e5_e6(cs, dev, out)
@@ -330,10 +434,11 @@ def measure(root: str, clusters: bool, probes_only: bool) -> dict:
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    flags = [a for a in argv if a in ("--clusters", "--probes")]
+    flags = [a for a in argv if a in ("--clusters", "--probes", "--studies")]
     argv = [a for a in argv if a not in flags]
     if argv[:1] == ["--one"]:
-        print(json.dumps(measure(argv[1], "--clusters" in flags, "--probes" in flags)))
+        print(json.dumps(measure(argv[1], "--clusters" in flags, "--probes" in flags,
+                                 "--studies" in flags)))
         return 0
     for root in map(os.path.abspath, argv):
         cmd = [sys.executable, os.path.abspath(__file__), "--one", root]

@@ -66,7 +66,8 @@ their kernels-line entries carry the C each ran with (`cluster`).
    version, timed, and its bound:
    a. kernel_variants: the six scoring configurations, B=64, N=384, P=4096;
    b. rollout_score_variants: the five score-block variants, B=64, I=50,
-      c and carry, and their time at I and I/2;
+      c and carry, and their time at I and I/2; per variant the cluster
+      size C its launch chose, its CTAs and the SMs they ran on;
    c. pallas_variants: the nine variant/tile pairs inside pso_solve_batch
       at B=32, P=4096, I=50, beside the plain baseline (solves/s, cost
       maxdiff, median pose error; a variant less accurate than the
@@ -239,12 +240,23 @@ def _ptxas_summary(log):
     spill bytes."""
     import re
 
+    def short(mangled):
+        """The kernel's own name (the last <length><name> of the mangled
+        nested name) and its template arguments, as mangled."""
+        i, name = (re.match(r"_ZN?", mangled) or re.match("", mangled)).end(), None
+        while (d := re.match(r"\d+", mangled[i:])) is not None:
+            start = i + d.end()
+            name, i = mangled[start:start + int(d.group())], start + int(d.group())
+        if name is None:
+            return mangled
+        targs = re.match(r"(I\w*?E)?E", mangled[i:])
+        return name + ((targs.group(1) or "") if targs else "")
+
     out, name, frame = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:  # the kernel's name and template arguments, as mangled
-            short = re.search(r"\d+([a-z_]*kernel)(I\w*?E)?E", m.group(1))
-            name = "".join(g or "" for g in short.groups()) if short else m.group(1)
+            name = short(m.group(1))
         elif "spill" in line:
             frame = line.strip()
         elif "registers" in line and name:
@@ -869,9 +881,9 @@ def _expected_launches(mode, iterations):
     return {"score": iterations + 2}  # the seed, the population, each iteration
 
 
-def _profile(fn, name=None):
-    """One call under torch.profiler: (kernel launches, device busy ms, wall
-    ms), of the kernels whose name holds `name` if one is given."""
+def _trace(fn):
+    """One call under torch.profiler: (the device operations it recorded,
+    as key_averages' rows, wall ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -882,8 +894,14 @@ def _profile(fn, name=None):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and (name is None or name in e.key)]
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA], wall
+
+
+def _profile(fn, name=None):
+    """One call under torch.profiler: (kernel launches, device busy ms, wall
+    ms), of the kernels whose name holds `name` if one is given."""
+    rows, wall = _trace(fn)
+    kern = [e for e in rows if name is None or name in e.key]
     busy_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
                   for e in kern)
     return sum(e.count for e in kern), busy_us / 1e3, wall
@@ -1166,9 +1184,16 @@ def _variant_tol(zroute, reduce):
 
 
 def _variant_ops(pairs, features, zroute, reduce, masked=True):
+    """score_ops for a variant.  The outer route's semantics forbid the FMA
+    (every product and every sum rounded), so each of its products and sums
+    takes an issue slot of the FP32 pipes on its own: at the FMA-counted 67
+    TFLOP/s each counts 2 flop-equivalents, twice score_ops' 2 per feature."""
     zpipe = {"bf16": "bf16", "tf32": "tf32"}.get(zroute, "fp32")
     rpipe = ("bf16" if zroute == "bf16" else "tf32") if reduce == "mma" else "fp32"
-    return score_ops(pairs, features, zpipe, rpipe, masked)
+    ops = score_ops(pairs, features, zpipe, rpipe, masked)
+    if zroute == "outer":
+        ops["fp32"] += 2.0 * features * pairs
+    return ops
 
 
 def _study_entry(name, source, replaces, launches, variants, ref, library_ms=None):
@@ -1269,11 +1294,17 @@ def phase_rollout_score_variants(dev):
         zroute = "bf16" if name.startswith("bf16") else "f32"
         ops = _variant_ops(b * p * w.shape[1] * rsv.I, f, zroute, "cores", masked=False)
         bms, by = bound(_nbytes(phit, w) + 4.0 * b * (p + 1), **ops)
+        # One more launch of the run's shape, outside the counted run: the
+        # cluster size chosen for it and the SMs its CTAs ran on.
+        sms, ctas = sv.block_sms(phit, w, 1, name) if dev.type == "cuda" else (None, None)
+        launch = sv.score_block.LAST or {"cluster": None}
         variants[name] = dict(ms=ms, ms_half_iterations=ms_half, plain_ms=plain_ms,
-                              max_abs_err=err, bound_ms=bms, bound_by=by)
+                              max_abs_err=err, bound_ms=bms, bound_by=by,
+                              cluster=launch["cluster"], ctas=ctas, sms=sms)
         print(f"[phase 6b] {name} (B={b} N={w.shape[1]} P={p} I={rsv.I}): max |c - plain| "
               f"{err:.3e}, carry 0; kernel {ms:.4f} ms ({ms_half:.4f} ms at I={rsv.I // 2}), "
-              f"plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}, {100 * bms / ms:.1f}% of it)")
+              f"plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}, {100 * bms / ms:.1f}% of it); "
+              f"cluster C={launch['cluster']}, {ctas} CTAs on {sms} SMs")
     return _study_entry("rollout_score_variants", "score_variants.cu",
                         "experiments/rollout_score_variants.py:22", launches, variants, "base")
 
@@ -1453,6 +1484,10 @@ COS_RTOL, COS_ATOL = 2.0**-22, 0.0
 # calls, beside the CUDA-event time per call (which, for a launch-bound probe,
 # is the wrapper's host time).
 PROFILE_CALLS = 10
+# Profiled windows _device_ms takes before it gives up on recording a
+# kernel: late in a full run the profiler has recorded none of 10 launches
+# (E5's sten4 at B=256).
+PROFILE_TRIES = 3
 # The stencil table at C1's batch is 1.6x the 50 MB L2, and calls back to
 # back find part of it there: at that shape a probe (and torch.sum) is timed
 # one call at a time, each after a read of FLUSH_BYTES that evicts the L2 (a
@@ -1511,12 +1546,15 @@ def _device_ms(fn, kernel=None):
     wrapper that launches that kernel once per call, beside PyTorch ops of
     its own).  Late in a full run the profiler records only part of the
     launches (fewer than the wrappers count), so a total over the calls
-    under-counts."""
-    n, busy, _ = _profile(lambda: [fn() for _ in range(PROFILE_CALLS)], kernel)
-    if kernel is None:
-        return busy / PROFILE_CALLS
-    check(n > 0, f"the profiler recorded no launch of {kernel}")
-    return busy / n
+    under-counts; a window where it recorded none of them is taken again,
+    up to PROFILE_TRIES windows."""
+    for _ in range(PROFILE_TRIES):
+        n, busy, _ = _profile(lambda: [fn() for _ in range(PROFILE_CALLS)], kernel)
+        if kernel is None:
+            return busy / PROFILE_CALLS
+        if n > 0:
+            return busy / n
+    check(False, f"the profiler recorded no launch of {kernel} in {PROFILE_TRIES} windows")
 
 
 def _time_split(fn, reps, kernels):
@@ -1537,16 +1575,20 @@ def _sum_ok(got, want, magnitudes):
 def _io_host_split(name, args, got, library):
     """6e's k_min / k_smem at C1's shape: the host time per call beside
     torch.sum's, and the device operations per call, which must all be the
-    probe's kernel, one a call (the profiler may drop records late in a
-    run, never add them); k_smem also with its keys as int32 words, whose
+    probe's kernel, one a call (both counted in one profiled window: the
+    profiler may drop records late in a run, never add them); k_smem also with its keys as int32 words, whose
     result must be the same bits."""
     import torch
 
     from ndtpso_slam_tpu_torch.ops import probes
 
     call = lambda: probes.io_probe(name, *args)
-    many = lambda: [call() for _ in range(PROFILE_CALLS)]
-    ops, own = _profile(many)[0], _profile(many, "io_kernel_warp")[0]
+    for _ in range(PROFILE_TRIES):  # both counts from one window, as it may drop records
+        rows = _trace(lambda: [call() for _ in range(PROFILE_CALLS)])[0]
+        ops = sum(e.count for e in rows)
+        own = sum(e.count for e in rows if "io_kernel_warp" in e.key)
+        if ops > 0:
+            break
     check(0 < ops == own <= PROFILE_CALLS,
           f"io_probe {name}: {ops} device operations in {PROFILE_CALLS} calls, {own} its kernel's")
     out = dict(host_us=_host_us(call), library_host_us=_host_us(library),

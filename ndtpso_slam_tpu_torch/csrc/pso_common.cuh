@@ -20,10 +20,14 @@
 //   (the same with bf16 operands, on the tensor cores) and select_particle.  The scoring switches (exp mode,
 //   bf16 operands) are template parameters, so the score loop has no
 //   runtime branch on them.
-// * One solve per thread-block cluster (K1, K2): cluster_total adds the C
+// * One solve per thread-block cluster (K1, K2, E3): cluster_total adds the C
 //   CTAs' partial costs of one particle in rank order (cluster_total_global:
 //   the same for partials in global scratch, the large-population routes),
-//   and launch_cluster launches a kernel with its cluster dimension.
+//   cluster_min takes the minimum of the C CTAs' values with jnp.min's NaN
+//   rule, and launch_cluster launches a kernel with its cluster dimension.
+// * The frozen score's inner loop of score.cu (K3) and score_variants.cu
+//   (E1-E3): ex2 (2^x on MUFU.EX2), min_nan / max_nan (PTX min.NaN /
+//   max.NaN) and dot_row (the fmaf chain over a row loaded as four float4s).
 
 #pragma once
 
@@ -202,6 +206,44 @@ __device__ __forceinline__ float dot16(const float* row, const float phi[16]) {
   z = fmaf(d.y, phi[13], z);
   z = fmaf(d.z, phi[14], z);
   return F == 16 ? fmaf(d.w, phi[15], z) : z;
+}
+
+// ---- The frozen score's inner loop (score.cu, score_variants.cu).
+
+constexpr float kLog2e = 1.44269504088896340736f;
+
+// 2^x on the special-function unit; a subnormal result flushes to 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// min(a, b) that returns NaN when either operand is NaN.
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// max(a, b) that returns NaN when either operand is NaN.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// z = w . phi over the first F features of a row loaded as four float4s:
+// an fmaf chain in feature order.
+template <int F>
+__device__ __forceinline__ float dot_row(const float4& a, const float4& b, const float4& c,
+                                         const float4& d, const float phi[F]) {
+  const float r[16] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w,
+                       c.x, c.y, c.z, c.w, d.x, d.y, d.z, d.w};
+  float z = r[0] * phi[0];
+#pragma unroll
+  for (int f = 1; f < F; ++f) z = fmaf(r[f], phi[f], z);
+  return z;
 }
 
 __device__ __forceinline__ int floor_i32(float v) {
@@ -668,6 +710,17 @@ __device__ __forceinline__ float cluster_total(float* part, int j, int nranks) {
   float t = cluster.map_shared_rank(part, 0)[j];
   for (int r = 1; r < nranks; ++r) t += cluster.map_shared_rank(part, r)[j];
   return t;
+}
+
+// The minimum of one value per CTA of the cluster (each CTA's `slot`, read
+// through distributed shared memory after a cluster barrier), in rank order,
+// NaN if any is NaN (jnp.min's rule): every CTA gets the same bits.
+__device__ __forceinline__ float cluster_min(float* slot, int nranks) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  float m = *cluster.map_shared_rank(slot, 0);
+  for (int r = 1; r < nranks; ++r) m = min_nan(m, *cluster.map_shared_rank(slot, r));
+  return m;
 }
 
 // The large-population routes of K1 and K2 keep one CTA's particle state in

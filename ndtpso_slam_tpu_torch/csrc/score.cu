@@ -34,6 +34,9 @@
 //   rounding of u * log2 e moves it by at most |u| * 2^-24 relative;
 // * the masked sum as one fmaf (exact for a 0/1 mask).
 //
+// The loop's helpers (dot_row, min_nan, ex2) live in pso_common.cuh, where
+// score_variants.cu's register-tile kernels (E1-E3) share them.
+//
 // Its loop runs 21.5 instructions per pair at F = 15 (22.5 at 16): 15
 // FFMA, 2 FMUL (the dot's first product, u * log2 e), 1.25 LDS, one
 // FMNMX, one MUFU.EX2 and 1.25 of loop bookkeeping, against the bound's 17
@@ -54,34 +57,10 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTile = 4;  // particles per thread
 constexpr int kRow = 16;
-constexpr float kLog2e = 1.44269504088896340736f;
-
-// 2^x on the special-function unit; a subnormal result flushes to 0.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// min(a, b) that returns NaN when either operand is NaN.
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float d;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
-
-// z = w . phi over the first F features of a row loaded as four float4s:
-// an fmaf chain in feature order.
-template <int F>
-__device__ __forceinline__ float dot_row(const float4& a, const float4& b, const float4& c,
-                                         const float4& d, const float phi[F]) {
-  const float r[16] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w,
-                       c.x, c.y, c.z, c.w, d.x, d.y, d.z, d.w};
-  float z = r[0] * phi[0];
-#pragma unroll
-  for (int f = 1; f < F; ++f) z = fmaf(r[f], phi[f], z);
-  return z;
-}
+using ndt::dot_row;
+using ndt::ex2;
+using ndt::kLog2e;
+using ndt::min_nan;
 
 // Block (b, y) scores particles y * T * kThreads + t * kThreads + tid,
 // t < T, of solve b.

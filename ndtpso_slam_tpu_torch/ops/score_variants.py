@@ -22,6 +22,14 @@ then rounded to bf16 on the bf16 route and to TF32 otherwise).  The plain
 versions repeat every one of those roundings, so a kernel and its plain
 version differ only by summation order and the ulps of ``exp``/``exp2``.
 
+:func:`score_block` runs one solve per thread-block cluster of C CTAs,
+split over particles (:func:`block_launch`: C by ``ops/_build.py:choose_cluster``,
+the fewest waves, then the largest C); ``score_block.LAST`` holds the last
+launch's cluster size, CTAs and particles per CTA.  Where the score is
+``exp(-max(z, 0)/2)`` the kernels stage ``w`` as ``-w/2``
+(:data:`HALF_STAGED_ROUTES`, :data:`HALF_STAGED_BLOCK`): a power of two, so
+their ``z' = -z/2`` is the plain version's ``-0.5·z`` bit for bit.
+
 The wrappers take the plain versions for tensors on the CPU and launch the
 kernels for tensors on a CUDA device; they never fall back from one to the
 other.  ``score_variants.LAUNCHES`` and ``score_block.LAUNCHES`` count kernel
@@ -30,7 +38,9 @@ launches.  The library is built by ``ops/_build.py``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 
@@ -43,16 +53,25 @@ BLOCK_VARIANTS = ("base", "exp2", "noclamp", "bf16mm", "bf16all")
 # float32(0.5 * log2(e)) as the TPU study writes it, and its bfloat16 rounding.
 LOG2E_HALF = 0.7213475204444817
 LOG2E_HALF_BF16 = 0.72265625
+# The routes and score-block variants whose kernels stage w as -w/2 (TF32:
+# the rounded w, halved).  exp2 and bf16all multiply by constants that are
+# not powers of two; bf16mm and the bf16 route multiply z by -1/2.
+HALF_STAGED_ROUTES = ("f32", "tf32", "outer")
+HALF_STAGED_BLOCK = ("base", "noclamp")
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.ndt_score_variant.argtypes = [vp] * 4 + [i] * 6 + [vp]
     lib.ndt_score_variant.restype = i
-    lib.ndt_score_variant_smem_bytes.argtypes = [i]
+    lib.ndt_score_variant_smem_bytes.argtypes = [i] * 3
     lib.ndt_score_variant_smem_bytes.restype = ctypes.c_size_t
-    lib.ndt_score_block.argtypes = [vp] * 4 + [i] * 5 + [vp]
+    lib.ndt_score_block.argtypes = [vp] * 5 + [i] * 6 + [vp]
     lib.ndt_score_block.restype = i
+    lib.ndt_score_block_smem_bytes.argtypes = [i] * 2
+    lib.ndt_score_block_smem_bytes.restype = ctypes.c_size_t
+    lib.ndt_score_block_max_active_clusters.argtypes = [i] * 3 + [ctypes.POINTER(i)]
+    lib.ndt_score_block_max_active_clusters.restype = i
 
 
 LIB = _build.KernelLib("score_variants", "score_variants.cu", _bind)
@@ -126,11 +145,23 @@ def _check_cuda(*tensors):
     return dev
 
 
-def _smem_ok(lib, dev, n):
-    smem = lib.ndt_score_variant_smem_bytes(n)
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if smem > limit:
+@functools.lru_cache(maxsize=None)
+def _smem(index, n, entry, *route):
+    """The dynamic shared memory of a launch (the library's ``entry`` for
+    this N and route), checked against device ``index``'s limit once per
+    shape."""
+    smem = getattr(_build.load(LIB), entry)(n, *route)
+    limit = _build.device_limits(index)[0]
+    if smem + _build.STATIC_SMEM > limit:
         raise ValueError(f"N={n} needs {smem} B of shared memory; the device allows {limit} B")
+    return smem
+
+
+def _on(index):
+    """The device context a launch on device ``index`` needs: none when it
+    is the current device already (the common case costs no switch)."""
+    return (contextlib.nullcontext() if index == torch.cuda.current_device()
+            else torch.cuda.device(index))
 
 
 def _launch_variants(phit, w, mask, zroute, reduce, tile):
@@ -146,14 +177,14 @@ def _launch_variants(phit, w, mask, zroute, reduce, tile):
     if tile < 16 or tile % 16:
         raise ValueError(f"tile {tile} must be a positive multiple of 16")
     lib = _build.load(LIB)
-    _smem_ok(lib, dev, n)
+    index = phit.get_device()
+    route = (ZROUTES.index(zroute), REDUCES.index(reduce))
+    _smem(index, n, "ndt_score_variant_smem_bytes", *route)
     out = torch.empty((b, p), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ndt_score_variant(
-            phit.data_ptr(), w.data_ptr(), mask.data_ptr(), out.data_ptr(), b, n, p, tile,
-            ZROUTES.index(zroute), REDUCES.index(reduce), stream,
-        )
+    with _on(index):
+        err = lib.ndt_score_variant(phit.data_ptr(), w.data_ptr(), mask.data_ptr(),
+                                    out.data_ptr(), b, n, p, tile, *route,
+                                    torch._C._cuda_getCurrentRawStream(index))
     _build.check_launch(lib, err, "score_variants")
     score_variants.LAUNCHES += 1
     return out
@@ -212,7 +243,26 @@ def score_block_reference(phit, w, iterations, variant="base"):
     return carry, c
 
 
-def _launch_block(phit, w, iterations, variant):
+def block_launch(batch, population, clusters_held, smem_bytes, smem_limit, cluster=None):
+    """E3's launch geometry, a pure function: one solve per cluster of C
+    CTAs, C from :func:`ops._build.choose_cluster` over ``clusters_held(C)``
+    (the most clusters of C CTAs of the kernel, its threads and registers
+    included, the device holds at once) unless ``cluster`` is given; B·C
+    CTAs, each scoring a contiguous ceil(P / C) of the particles.  Returns
+    dict(cluster, ctas, per_cta)."""
+    c = cluster or _build.choose_cluster(batch, lambda _c: smem_bytes, smem_limit, clusters_held)
+    return dict(cluster=c, ctas=batch * c, per_cta=-(-population // c))
+
+
+def _block_clusters_held(lib, n, vidx, cluster, dev):
+    out = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = lib.ndt_score_block_max_active_clusters(n, vidx, cluster, ctypes.byref(out))
+    _build.check_launch(lib, err, "score_block", "occupancy query")
+    return out.value
+
+
+def _launch_block(phit, w, iterations, variant, cluster=None, sms=None):
     dev = _check_cuda(phit, w)
     phit, w = phit.contiguous(), w.contiguous()
     b, f, p = phit.shape
@@ -222,16 +272,36 @@ def _launch_block(phit, w, iterations, variant):
     if iterations < 1:
         raise ValueError("iterations must be >= 1")
     lib = _build.load(LIB)
-    _smem_ok(lib, dev, n)
+    index = phit.get_device()
+    vidx = BLOCK_VARIANTS.index(variant)
+    smem = _smem(index, n, "ndt_score_block_smem_bytes", vidx)
+    c_size = _build.device_cluster(
+        ("score_block", vidx, n), b, lambda _c: smem,
+        lambda cc: _block_clusters_held(lib, n, vidx, cc, dev), dev, cluster)
     c = torch.empty((b, p), dtype=torch.float32, device=dev)
     carry = torch.empty((b,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with _on(index):
         err = lib.ndt_score_block(phit.data_ptr(), w.data_ptr(), c.data_ptr(), carry.data_ptr(),
-                                  b, n, p, iterations, BLOCK_VARIANTS.index(variant), stream)
+                                  None if sms is None else sms.data_ptr(), b, n, p, iterations,
+                                  vidx, c_size, torch._C._cuda_getCurrentRawStream(index))
     _build.check_launch(lib, err, "score_block")
     score_block.LAUNCHES += 1
+    # The geometry of block_launch, at the C chosen (and cached) above.
+    score_block.LAST = block_launch(b, p, None, smem, None, cluster=c_size)
     return carry, c
+
+
+def block_sms(phit, w, iterations, variant="base", cluster=None):
+    """One :func:`score_block` launch on the card that also records each
+    CTA's SM: (the SMs its CTAs ran on, its CTAs).  Counts as a launch."""
+    if variant not in BLOCK_VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; expected one of {BLOCK_VARIANTS}")
+    if phit.device.type != "cuda":
+        raise ValueError(f"block_sms reads the SMs of a launch on the card, not {phit.device}")
+    probe = torch.empty(phit.shape[0] * 8, dtype=torch.int32, device=phit.device)
+    _launch_block(phit, w, iterations, variant, cluster, sms=probe)
+    ctas = score_block.LAST["ctas"]
+    return int(torch.unique(probe[:ctas]).numel()), ctas
 
 
 def score_block(
@@ -239,19 +309,22 @@ def score_block(
     w: torch.Tensor,  # [B, N, 16] f32
     iterations: int,
     variant: str = "base",
+    cluster=None,
 ):
     """I serial iterations of z = w·φᵀ, s = score(z), c = -Σₙ s per solve,
     each scaling φ by ``1 + carry·0`` and adding ``min(c)·0`` to the carry.
     Returns (carry [B], the last iteration's c [B, P]); the carry is 0 unless
     some c is NaN.  CPU tensors run the plain version; CUDA tensors launch
-    the kernel."""
+    the kernel, one solve per cluster of the chosen C (``cluster``: forced,
+    for tests)."""
     if variant not in BLOCK_VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; expected one of {BLOCK_VARIANTS}")
     if phit.device.type == "cpu":
         return score_block_reference(phit, w, iterations, variant)
     if phit.device.type != "cuda":
         raise ValueError(f"unsupported device {phit.device}")
-    return _launch_block(phit, w, iterations, variant)
+    return _launch_block(phit, w, iterations, variant, cluster)
 
 
 score_block.LAUNCHES = 0
+score_block.LAST = None

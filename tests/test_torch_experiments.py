@@ -461,32 +461,86 @@ _GPU_TOL = {"cores": (1e-5, 1e-4), ("mma", "bf16"): (1e-5, 1e-4 + _FLIPS * BF16_
             ("mma", "tf32"): (1e-5, 1e-4 + _FLIPS * TF32_U), "bf16all": (1e-5, 1e-4 + _FLIPS * 2 * BF16_U)}
 
 
+_GPU_VARIANTS = [(z, r) for z in tsv.ZROUTES for r in tsv.REDUCES if (z, r) != ("outer", "mma")]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("zroute,reduce", [(z, r) for z in tsv.ZROUTES for r in tsv.REDUCES
-                                           if (z, r) != ("outer", "mma")])
-def test_score_variant_kernel_matches_plain_on_gpu(cuda_device, zroute, reduce):
-    phit, w, mask = (torch.from_numpy(a).to(cuda_device) for a in _small(b=3, f=15, p=300, n=100))
+@pytest.mark.parametrize("zroute,reduce", _GPU_VARIANTS)
+@pytest.mark.parametrize("tile", [16, 64, 256, 512, 1024, 2048, 4096])
+@pytest.mark.parametrize("p,n", [(300, 100), (4095, 383), (17, 9)])
+def test_score_variant_kernel_matches_plain_on_gpu(cuda_device, zroute, reduce, tile, p, n):
+    """Every route at every tile (E2's and E1's, and below a warp's
+    particles), ragged P and N, 15 features; a NaN in one w row makes the
+    solve's costs NaN."""
+    phit, w, mask = (torch.from_numpy(a).to(cuda_device) for a in _small(b=3, f=15, p=p, n=n))
+    w[2, n // 2, 3] = float("nan")
     before = tsv.score_variants.LAUNCHES
-    got = tsv.score_variants(phit, w, mask, zroute, reduce, 64)
+    got = tsv.score_variants(phit, w, mask, zroute, reduce, tile)
     torch.cuda.synchronize()
     assert tsv.score_variants.LAUNCHES == before + 1
     ref = tsv.score_variants_reference(phit, w, mask, zroute, reduce)
     key = "cores" if reduce == "cores" else ("mma", "bf16" if zroute == "bf16" else "tf32")
     rtol, atol = _GPU_TOL[key]
-    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=rtol, atol=atol)
+    assert torch.isnan(got[2]).all() and torch.isnan(ref[2]).all()
+    np.testing.assert_allclose(got[:2].cpu().numpy(), ref[:2].cpu().numpy(), rtol=rtol, atol=atol)
+
+
+def _chosen_cluster(phit, w, variant):
+    """The cluster size ops/_build.py:choose_cluster picks for this launch,
+    from the card's own occupancy query."""
+    from ndtpso_slam_tpu_torch.ops import _build
+
+    lib = _build.load(tsv.LIB)
+    vidx = tsv.BLOCK_VARIANTS.index(variant)
+    n = w.shape[1]
+    smem = lib.ndt_score_block_smem_bytes(n, vidx)
+    limit = _build.device_limits(torch.cuda.current_device())[0]
+    return _build.choose_cluster(phit.shape[0], lambda _c: smem, limit,
+                                 lambda c: tsv._block_clusters_held(lib, n, vidx, c, phit.device))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant", tsv.BLOCK_VARIANTS)
-def test_score_block_kernel_matches_plain_on_gpu(cuda_device, variant):
-    phit, w, _ = (torch.from_numpy(a).to(cuda_device) for a in _small(b=3, p=300, n=100))
-    phit[2, 1, 5] = float("nan")
+@pytest.mark.parametrize("b,p,n", [(3, 300, 100), (65, 4095, 383), (3, 17, 384), (2, 4096, 16)])
+def test_score_block_kernel_matches_plain_on_gpu(cuda_device, variant, b, p, n):
+    """One solve per cluster at the chooser's C, B not a multiple of the
+    card's clusters, ragged P and N; a NaN in one phi turns the last solve's
+    carry NaN as the plain version's does, the others stay 0."""
+    phit, w, _ = (torch.from_numpy(a).to(cuda_device) for a in _small(b=b, p=p, n=n))
+    phit[b - 1, 1, p // 2] = float("nan")
+    before = tsv.score_block.LAUNCHES
     carry, c = tsv.score_block(phit, w, 4, variant)
     rcarry, rc = tsv.score_block_reference(phit, w, 4, variant)
     torch.cuda.synchronize()
-    assert carry[:2].tolist() == [0.0, 0.0] and torch.isnan(carry[2]) and torch.isnan(rcarry[2])
+    assert tsv.score_block.LAUNCHES == before + 1
+    assert tsv.score_block.LAST["cluster"] == _chosen_cluster(phit, w, variant)
+    assert tsv.score_block.LAST["ctas"] == b * tsv.score_block.LAST["cluster"]
+    assert carry[:-1].tolist() == [0.0] * (b - 1) and torch.equal(carry[:-1], rcarry[:-1])
+    assert torch.isnan(carry[-1]) and torch.isnan(rcarry[-1])
+    assert torch.isnan(c[-1]).all() and torch.isnan(rc[-1]).all()
     rtol, atol = _GPU_TOL["bf16all" if variant == "bf16all" else "cores"]
-    np.testing.assert_allclose(c[:2].cpu().numpy(), rc[:2].cpu().numpy(), rtol=rtol, atol=atol)
+    np.testing.assert_allclose(c[:-1].cpu().numpy(), rc[:-1].cpu().numpy(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", tsv.BLOCK_VARIANTS)
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_score_block_kernel_at_every_cluster_size_on_gpu(cuda_device, variant, cluster):
+    """A forced C splits the particles differently but leaves every
+    particle's sum whole: the same results at C = 1, 2, 4, 8, and the
+    iterations still tie through the cluster's minimum (a NaN carry)."""
+    phit, w, _ = (torch.from_numpy(a).to(cuda_device) for a in _small(b=3, p=1000, n=100))
+    phit[1, 2, 999] = float("nan")
+    carry, c = tsv.score_block(phit, w, 3, variant, cluster=cluster)
+    rcarry, rc = tsv.score_block_reference(phit, w, 3, variant)
+    torch.cuda.synchronize()
+    assert tsv.score_block.LAST["cluster"] == cluster
+    assert carry[0] == 0 and carry[2] == 0 and torch.isnan(carry[1]) and torch.isnan(rcarry[1])
+    rtol, atol = _GPU_TOL["bf16all" if variant == "bf16all" else "cores"]
+    np.testing.assert_allclose(c[[0, 2]].cpu().numpy(), rc[[0, 2]].cpu().numpy(), rtol=rtol,
+                               atol=atol)
+    sms, ctas = tsv.block_sms(phit, w, 1, variant, cluster=cluster)
+    assert ctas == 3 * cluster and 1 <= sms <= ctas
 
 
 @pytest.mark.gpu
