@@ -75,12 +75,14 @@ class MapConfig:
     cell_side_m: float = DEFAULT_CELL_SIZE_M
     window_slots: int = NDT_WINDOW_SIZE
     slot_capacity: int = NDT_MAX_POINTS_PER_CELL
-    # Stencil patch side in cells (0 = whole grid).  The port binds stencils
-    # by direct gather, which needs no patch; a value > 0 is kept for config
-    # parity and rejected by the binder (ROADMAP A6).
+    # Stencil patch side in cells (0 = whole grid): a stencil neighbour
+    # outside the patch around the anchor counts as unbuilt
+    # (models/cost.py:bind_neighborhood).
     stencil_patch_cells: int = 0
-    # Sparse ring rows (0 = dense).  The port runs the dense ring only;
-    # ring_rows > 0 is listed in ROADMAP (A5) and raises.
+    # Sparse ring rows (0 = dense: one ring row per cell).  R > 0 keeps the
+    # sliding window of R cells, each row given to a cell on its first build
+    # (models/ndt_map.py:build_touched); a cell that finds none never builds
+    # and is counted in ring_overflow.
     ring_rows: int = 0
 
     @property

@@ -9,7 +9,8 @@ Port of ``ndtpso_slam_tpu/models/cost.py``:
   anchor cell at the solve's initial guess, gathered once per solve.  Only
   the JAX package's ``gather`` strategy is ported; its ``roll`` strategy
   exists because a TPU gathers row by row, and both give the same bits on
-  built lanes.
+  built lanes.  The stencil patch (``MapConfig.stencil_patch_cells``) is a
+  mask on that gather: a neighbour outside the patch counts as unbuilt.
 * :func:`stencil_exact_cost` — every particle re-bins every point against
   that stencil.  The JAX package selects the stencil lane with a one-hot sum;
   here it is a direct indexed load, which selects the same value (the one-hot
@@ -116,13 +117,14 @@ def bind_neighborhood(
     A point whose anchor cell is outside the grid has its whole stencil
     unbuilt (``anchor_in``), and so has every neighbour outside the grid;
     those lanes hold the clipped neighbour's statistics, which every consumer
-    masks."""
-    if 0 < cfg.stencil_patch_cells < cfg.cells_per_side:
-        raise NotImplementedError(
-            "the stencil patch (MapConfig.stencil_patch_cells) belongs to the "
-            "JAX package's roll strategy, which is not ported (ROADMAP A6); "
-            "the port binds by direct gather"
-        )
+    masks.
+
+    With a stencil patch (0 < ``cfg.stencil_patch_cells`` = ps < the grid's
+    side), only the ps x ps cells from origin clip(cell(anchor) - ps//2, 0,
+    W - ps) count: a neighbour outside them is unbuilt, the JAX package's
+    rule (``cost.py:305-313, 363-380``).  The JAX package cuts the patch out
+    of the table to bound a TPU roll's memory traffic; a gather reads only
+    the N·K2 rows either way, so here the patch is that mask alone."""
     w_cells = cfg.cells_per_side
     q0 = transform_points(points, anchor_pose)  # [..., N, 2]
     ix, iy, _ = cell_coords(q0, size_m=cfg.size_m, cell_side_m=cfg.cell_side_m)
@@ -134,6 +136,11 @@ def bind_neighborhood(
     in_grid = (nix >= 0) & (nix < w_cells) & (niy >= 0) & (niy < w_cells)
     anchor_in = (ix >= 0) & (ix < w_cells) & (iy >= 0) & (iy < w_cells)
     in_grid = in_grid & anchor_in[..., None]
+    ps = cfg.stencil_patch_cells
+    if 0 < ps < w_cells:
+        ox, oy = window_origin(anchor_pose, ps, cfg)
+        ox, oy = ox[..., None, None], oy[..., None, None]
+        in_grid = in_grid & (nix >= ox) & (nix < ox + ps) & (niy >= oy) & (niy < oy + ps)
     flat = (
         niy.clamp(0, w_cells - 1).long() * w_cells + nix.clamp(0, w_cells - 1).long()
     )
@@ -270,8 +277,9 @@ def bind_points_matmul(
 
 def window_origin(pose: torch.Tensor, ps: int, cfg: MapConfig):
     """(ox, oy): the corner cell of the ``ps`` x ``ps`` window centred on
-    ``pose``'s cell, clipped so the window lies inside the grid."""
-    cx, cy, _ = cell_coords(pose[:2], size_m=cfg.size_m, cell_side_m=cfg.cell_side_m)
+    ``pose``'s cell, clipped so the window lies inside the grid.  pose:
+    [..., 3] -> ox, oy [...]."""
+    cx, cy, _ = cell_coords(pose[..., :2], size_m=cfg.size_m, cell_side_m=cfg.cell_side_m)
     hi = cfg.cells_per_side - ps
     return (cx - ps // 2).clamp(0, hi), (cy - ps // 2).clamp(0, hi)
 

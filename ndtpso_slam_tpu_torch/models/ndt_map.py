@@ -6,24 +6,33 @@ cell's centre (float32 keeps the ~1e-2 m² cell variance 150 m from the
 origin), and the 100-slot sliding window of the reference
 (``ndtcell.cpp:21-68``) is a ring of per-slot partial sums.
 
+The ring is dense (``MapConfig.ring_rows`` 0: one ring row per cell) or
+sparse (``ring_rows`` = R > 0: R rows, each given to a cell on its first
+build through ``ring_map``; see :func:`build_touched`).  The dense ring is
+~0.86 GB at the 300 m / 0.5 m / 100-slot deployment scale, a sparse one of
+16,384 rows ~39 MB.
+
 Two differences from the JAX package, both about memory:
 
 * **In place.**  :func:`add_points`, :func:`build_touched` and :func:`build`
-  update the state's tensors in place and return the same object.  The dense
-  ring is ~0.86 GB at the 300 m / 0.5 m / 100-slot deployment scale; a
-  functional update would copy it every scan.
-* **A spare row.**  Every per-cell tensor has ``num_cells + 1`` rows.  Row
-  ``num_cells`` is never read: scatters send their dropped entries there,
-  which is what the JAX package's ``mode="drop"`` does, without filtering the
-  indices (a host sync) and without ever touching a real cell.
-  :func:`snapshot` and ``utils/state.py`` see only the real rows.
+  update the state's tensors in place and return the same object; a
+  functional update would copy the ring every scan.
+* **A spare row.**  Every per-cell tensor has ``num_cells + 1`` rows, and
+  the ring's slot tensors have one row more than the ring (``num_cells + 1``
+  dense, ``ring_rows + 1`` sparse).  The last row is never read: scatters
+  send their dropped entries there, which is what the JAX package's
+  ``mode="drop"`` does, without filtering the indices (a host sync) and
+  without ever touching a real cell.  :func:`snapshot` and
+  ``utils/state.py`` see only the real rows.
 
 Scatter-add order: on the CPU ``index_add_`` adds in index order, like XLA's
 scatter on the CPU, so the port's statistics match the JAX package bit for
 bit there (``tests/test_torch_map.py``).  On CUDA ``index_add_`` of floats
 uses atomics, so the open-slot sums of a cell that several beams of one scan
-hit can differ in their last bits from run to run; the card is held to the
-trajectory gate, not to bit equality.
+hit can differ in their last bits from run to run, unless
+``torch.use_deterministic_algorithms`` is on (``chip_smoke.py`` compares
+runs bit for bit that way); otherwise the card is held to the trajectory
+gate, not to bit equality.
 """
 
 from __future__ import annotations
@@ -58,13 +67,15 @@ class NdtMapState:
     g_sum: torch.Tensor  # [C+1, 2] window-global sums
     g_count: torch.Tensor  # [C+1] int32
     g_cov: torch.Tensor  # [C+1, 3]
-    slot_sum: torch.Tensor  # [C+1, S, 2] ring of per-slot partials
-    slot_count: torch.Tensor  # [C+1, S] int32
-    slot_cov: torch.Tensor  # [C+1, S, 3]
+    slot_sum: torch.Tensor  # [C+1 | R+1, S, 2] ring of per-slot partials
+    slot_count: torch.Tensor  # [C+1 | R+1, S] int32
+    slot_cov: torch.Tensor  # [C+1 | R+1, S, 3]
     slot_idx: torch.Tensor  # [C+1] int32 current window slot
-    ring_map: torch.Tensor  # [0]: dense ring only
-    ring_used: torch.Tensor  # [] int32, always 0 (dense ring)
-    ring_overflow: torch.Tensor  # [] int32, always 0 (dense ring)
+    # Sparse ring only: cell -> ring row (-1 never built, -2 overflowed: no
+    # row was left at its first build, and it never builds).  [0] dense.
+    ring_map: torch.Tensor  # [C+1] int32 | [0]
+    ring_used: torch.Tensor  # [] int32 rows given out
+    ring_overflow: torch.Tensor  # [] int32 distinct cells that found no row
     rot_count: torch.Tensor  # [C+1] int32 cumulative ring rotations
     cur_sum: torch.Tensor  # [C+1, 2] open-slot accumulators
     cur_count: torch.Tensor  # [C+1] int32
@@ -72,14 +83,12 @@ class NdtMapState:
 
 
 def init_map(cfg: MapConfig, dtype=torch.float32, device="cuda") -> NdtMapState:
-    """Fresh all-zero map (NDTFrame ctor, ``ndtframe.cpp:19-66``)."""
-    if cfg.ring_rows > 0:
-        raise NotImplementedError(
-            "sparse ring storage (MapConfig.ring_rows > 0) is not ported yet "
-            "(ROADMAP A5); use the dense ring (ring_rows=0)"
-        )
+    """Fresh all-zero map (NDTFrame ctor, ``ndtframe.cpp:19-66``); a sparse
+    ring's ``ring_map`` starts at -1 (no cell has a row)."""
     dev = resolve_device(device)
     r = cfg.num_cells + 1
+    sparse = cfg.ring_rows > 0
+    rr = cfg.ring_rows + 1 if sparse else r
     s = cfg.window_slots
     f = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
     i = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
@@ -87,9 +96,10 @@ def init_map(cfg: MapConfig, dtype=torch.float32, device="cuda") -> NdtMapState:
     return NdtMapState(
         mean_c=f(r, 2), inv_cov=f(r, 3), built=b(r), created=b(r),
         g_sum=f(r, 2), g_count=i(r), g_cov=f(r, 3),
-        slot_sum=f(r, s, 2), slot_count=i(r, s), slot_cov=f(r, s, 3),
+        slot_sum=f(rr, s, 2), slot_count=i(rr, s), slot_cov=f(rr, s, 3),
         slot_idx=i(r),
-        ring_map=i(0), ring_used=i(), ring_overflow=i(),
+        ring_map=torch.full((r if sparse else 0,), -1, dtype=torch.int32, device=dev),
+        ring_used=i(), ring_overflow=i(),
         rot_count=i(r),
         cur_sum=f(r, 2), cur_count=i(r), cur_m2=f(r, 3),
     )
@@ -215,6 +225,28 @@ def _build_rows(cfg: MapConfig, rows: _CellRows) -> _CellRows:
     )
 
 
+def _assign_ring_rows(state: NdtMapState, cfg: MapConfig, sidx: torch.Tensor) -> None:
+    """Give each distinct cell of ``sidx`` (sentinel ``num_cells``) that has
+    never been built a ring row, in place: rows ``ring_used``, ``ring_used``
+    + 1, ... in ascending cell order, as the JAX package's cumsum over its
+    [C] mark assigns them (``ndt_map.py:388-420``).  A new cell past row R
+    is marked -2 and counted once in ``ring_overflow``.  The JAX package
+    marks and sums over all C cells; here the ids are sorted and the first
+    of each run of equal ids stands for its cell, which touches O(M log M)
+    entries instead of O(C) and gives the same rows."""
+    c = cfg.num_cells
+    srt = torch.sort(sidx).values
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[1:] = srt[1:] != srt[:-1]
+    new = first & (srt < c) & (state.ring_map[srt] == -1)
+    assigned = state.ring_used + torch.cumsum(new.to(torch.int32), 0, dtype=torch.int32) - 1
+    ok = new & (assigned < cfg.ring_rows)
+    # new marks distinct cells, so only the spare row is written twice.
+    state.ring_map[torch.where(new, srt, c)] = torch.where(ok, assigned, -2)
+    state.ring_used += ok.sum(dtype=torch.int32)
+    state.ring_overflow += (new & ~ok).sum(dtype=torch.int32)
+
+
 def build_touched(
     state: NdtMapState, cfg: MapConfig, ids: torch.Tensor
 ) -> NdtMapState:
@@ -225,12 +257,25 @@ def build_touched(
     JAX package, this equals the dense :func:`build` provided a build ran
     after every prior ingestion and a cell whose build rotated its ring is
     rebuilt on the next build (``slam_step`` passes this scan's ids and the
-    previous scan's)."""
+    previous scan's).
+
+    Sparse ring: a cell gets its ring row at its first build
+    (:func:`_assign_ring_rows`); a cell without one (overflowed) is left out
+    of every write, so it never builds and scores as outside the map."""
     c = cfg.num_cells
     ids = ids.long()
     sentinel = ids >= c
     safe = torch.where(sentinel, 0, ids)
     sidx = torch.where(sentinel, c, ids)
+    if cfg.ring_rows > 0:
+        _assign_ring_rows(state, cfg, sidx)
+        rrow = state.ring_map[safe].long()
+        has_row = rrow >= 0
+        sidx = torch.where(has_row, sidx, c)
+        ring_idx = torch.where(has_row & ~sentinel, rrow, cfg.ring_rows)
+        ring_safe = torch.where(has_row, rrow, 0)
+    else:
+        ring_idx, ring_safe = sidx, safe
     slot = state.slot_idx[safe].long()
     rows = _CellRows(
         mean_c=state.mean_c[safe],
@@ -239,9 +284,9 @@ def build_touched(
         g_sum=state.g_sum[safe],
         g_count=state.g_count[safe],
         g_cov=state.g_cov[safe],
-        old_sum=state.slot_sum[safe, slot],
-        old_count=state.slot_count[safe, slot],
-        old_cov=state.slot_cov[safe, slot],
+        old_sum=state.slot_sum[ring_safe, slot],
+        old_count=state.slot_count[ring_safe, slot],
+        old_cov=state.slot_cov[ring_safe, slot],
         slot_idx=state.slot_idx[safe],
         rot_count=state.rot_count[safe],
         cur_sum=state.cur_sum[safe],
@@ -256,9 +301,9 @@ def build_touched(
     state.g_count[sidx] = new.g_count
     state.g_cov[sidx] = new.g_cov
     # The slot write targets the pre-rotation slot, as the dense pass does.
-    state.slot_sum[sidx, slot] = new.old_sum
-    state.slot_count[sidx, slot] = new.old_count
-    state.slot_cov[sidx, slot] = new.old_cov
+    state.slot_sum[ring_idx, slot] = new.old_sum
+    state.slot_count[ring_idx, slot] = new.old_count
+    state.slot_cov[ring_idx, slot] = new.old_cov
     state.slot_idx[sidx] = new.slot_idx
     state.rot_count[sidx] = new.rot_count
     state.cur_sum[sidx] = new.cur_sum
@@ -270,9 +315,26 @@ def build_touched(
 def build(state: NdtMapState, cfg: MapConfig) -> NdtMapState:
     """Dense build of every cell, in place (``NDTFrame::build``,
     ``ndtframe.cpp:68-117``): the per-cell math of :func:`build_touched`
-    over all cells."""
+    over all cells.  A sparse map raises ValueError, as in the JAX package:
+    it would give every cell a ring row."""
+    if cfg.ring_rows > 0:
+        raise ValueError(
+            "the dense build() needs one ring row per cell; sparse maps "
+            "(MapConfig.ring_rows > 0) must build through build_touched "
+            "(the slam_step path)"
+        )
     ids = torch.arange(cfg.num_cells, device=state.slot_idx.device)
     return build_touched(state, cfg, ids)
+
+
+def reset(state: NdtMapState) -> NdtMapState:
+    """Full zero reset, in place (JAX ``ndt_map.reset``: a fresh map, where
+    the reference's ``NDTCell::reset`` keeps the stale Gaussians); a sparse
+    ring's ``ring_map`` goes back to -1, unassigned."""
+    for f in dataclasses.fields(state):
+        getattr(state, f.name).zero_()
+    state.ring_map.fill_(-1)
+    return state
 
 
 def snapshot(state: NdtMapState, cfg: MapConfig) -> MapSnapshot:

@@ -1,12 +1,13 @@
 """Particle-swarm SE(2) pose optimization.
 
-Port of ``pso_solve`` and ``pso_solve_batch`` in
-``ndtpso_slam_tpu/models/pso.py`` (``pso_optimization``, ``core.cpp:50-116``),
-synchronous-gbest variant: every particle sees the global best from the end
-of the previous iteration, the merge takes the first minimal index, and every
-improvement test is a strict ``<``.  Randomness follows the frozen Threefry
-protocol of :mod:`ndtpso_slam_tpu_torch.ops.rng` (``rng_mode="threefry"``),
-or its Philox layout for the turbo modes (``rng_mode="native"``).
+Port of ``pso_solve``, ``glir_pso_solve`` and ``pso_solve_batch`` in
+``ndtpso_slam_tpu/models/pso.py`` (``pso_optimization``, ``core.cpp:50-116``;
+GLIR-PSO, ``core.cpp:118-186``), synchronous-gbest variant: every particle
+sees the global best from the end of the previous iteration, the merge takes
+the first minimal index, and every improvement test is a strict ``<``.
+Randomness follows the frozen Threefry protocol of
+:mod:`ndtpso_slam_tpu_torch.ops.rng` (``rng_mode="threefry"``), or its Philox
+layout for the turbo modes (``rng_mode="native"``).
 """
 
 from __future__ import annotations
@@ -136,6 +137,70 @@ def pso_solve(
         if early_exit > 0:
             stale = 0 if bool(gimp) else stale + 1
     return PsoResult(pose=gbest, cost=gbest_cost)
+
+
+def glir_pso_solve(
+    key,
+    guess: torch.Tensor,
+    deviation: torch.Tensor,
+    cost_fn: CostFn,
+    cfg: PSOConfig,
+) -> PsoResult:
+    """One GLIR-PSO solve (JAX ``glir_pso_solve``, ``pso.py:135-216``): the
+    inertia and the coefficients adapted from the global-best / personal-best
+    cost ratios, ratio-weighted attractors (``core.cpp:146-153``), with the
+    JAX package's two departures from the untested upstream code: the
+    running personal-best average is taken over iterations, not divided by
+    the particle index, and the swarm runs in coordinates relative to the
+    guess.  The Threefry draws are :func:`pso_solve`'s; the 1e-12 guards
+    keep every ratio finite."""
+    dtype, dev = guess.dtype, guess.device
+    p = cfg.population
+    zero_dev = torch.tensor(ZERO_DEVIATION, dtype=dtype, device=dev)
+    u_g, u_p, r1s, r2s = pso_draws(key, p, cfg.iterations, dtype, dev)
+    shift = guess
+
+    def rel_cost(poses, bind):
+        return cost_fn(poses + shift, bind + shift)
+
+    zero3 = torch.zeros_like(guess)
+    g_pos = (2.0 * u_g - 1.0) * zero_dev
+    g_cost = rel_cost(g_pos[None, :], zero3)[0]
+    pos = (2.0 * u_p - 1.0) * deviation.to(dtype)
+    cost = rel_cost(pos, zero3)
+    bc, bp = _select_min(cost, pos)
+    improved = bc < g_cost
+    gbest = torch.where(improved, bp, g_pos)
+    gbest_cost = torch.where(improved, bc, g_cost)
+
+    eps = torch.tensor(1e-12, dtype=dtype, device=dev)
+    guard = lambda v: torch.where(torch.abs(v) > eps, v, eps)
+    vel = torch.zeros_like(pos)
+    pbest, pbest_cost, pbest_sum = pos, cost, cost
+    for i in range(cfg.iterations):
+        pbest_avg = pbest_sum / float(i + 1)
+        omega = 1.1 - gbest_cost / guard(pbest_avg)  # [P]
+        cc = 1.0 + gbest_cost / guard(pbest_cost)  # c1 == c2, core.cpp:147
+        ratio = pbest / guard(gbest)  # [P, 3]
+        inv_ratio = torch.where(torch.abs(ratio) > eps, 1.0 / ratio, 0.0)
+        vel = (omega[:, None] * vel
+               + cc[:, None] * r1s[i] * (ratio * pbest - pos)
+               + cc[:, None] * r2s[i] * (inv_ratio * gbest - pos))
+        pos = pos + vel
+        cost = rel_cost(pos, gbest)
+        better = cost < pbest_cost
+        pbest = torch.where(better[:, None], pos, pbest)
+        pbest_cost = torch.where(better, cost, pbest_cost)
+        pbest_sum = pbest_sum + pbest_cost
+        bc, bp = _select_min(pbest_cost, pbest)
+        gimp = bc < gbest_cost
+        gbest = torch.where(gimp, bp, gbest)
+        gbest_cost = torch.where(gimp, bc, gbest_cost)
+    return PsoResult(pose=gbest + shift, cost=gbest_cost)
+
+
+# The single-solve optimizers, by SlamConfig.optimizer.
+OPTIMIZERS = {"pso": pso_solve, "glir": glir_pso_solve}
 
 
 def _batch_draws(keys: torch.Tensor, i, population: int, dtype, device, rng_mode, count=None):

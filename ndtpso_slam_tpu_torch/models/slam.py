@@ -45,7 +45,7 @@ import torch
 from ndtpso_slam_tpu_torch.config import RECOVERY_AUTO_STRIDE_MIN_CELLS, SlamConfig, resolve_device
 from ndtpso_slam_tpu_torch.models import cost as cost_mod
 from ndtpso_slam_tpu_torch.models import ndt_map, occupancy
-from ndtpso_slam_tpu_torch.models.pso import PsoResult, _select_min, pso_solve, pso_solve_batch
+from ndtpso_slam_tpu_torch.models.pso import OPTIMIZERS, PsoResult, _select_min, pso_solve_batch
 from ndtpso_slam_tpu_torch.models.scan import Scan
 from ndtpso_slam_tpu_torch.ops import rng
 from ndtpso_slam_tpu_torch.ops.geometry import cell_index, transform_points
@@ -104,19 +104,22 @@ SLAM_COST_MODES = (
 )
 
 
-def check_supported(cfg: SlamConfig) -> None:
-    """Raise NotImplementedError for configuration the port cannot run yet."""
+def validate_config(cfg: SlamConfig) -> None:
+    """Raise ValueError for a configuration the JAX package refuses: an
+    unknown cost mode or optimizer, or GLIR with a ``rollout*`` mode (the
+    whole-solve kernels run the deployed PSO update rule only; the JAX
+    package raises this in ``align``, ``slam.py:199-204``)."""
     if cfg.cost_mode not in SLAM_COST_MODES:
-        raise NotImplementedError(
-            f"cost_mode {cfg.cost_mode!r} is not a cost mode of the JAX package "
-            f"(ROADMAP lists what is left to port); expected one of {SLAM_COST_MODES}"
+        raise ValueError(
+            f"unknown cost_mode {cfg.cost_mode!r}; expected one of {SLAM_COST_MODES}"
         )
-    if cfg.optimizer != "pso":
-        raise NotImplementedError(
-            f"optimizer {cfg.optimizer!r} is not ported yet (ROADMAP B3)"
+    if cfg.optimizer not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}; expected 'pso' | 'glir'")
+    if cfg.cost_mode.startswith("rollout") and cfg.optimizer != "pso":
+        raise ValueError(
+            "rollout cost modes implement the deployed PSO update rule "
+            f"only; optimizer={cfg.optimizer!r} needs a plain cost mode"
         )
-    if cfg.map.ring_rows > 0:
-        raise NotImplementedError("sparse ring_rows is not ported yet (ROADMAP A5)")
 
 
 def make_cost_fn(snap: ndt_map.MapSnapshot, scan: Scan, cfg: SlamConfig, guess=None):
@@ -148,7 +151,8 @@ def make_cost_fn(snap: ndt_map.MapSnapshot, scan: Scan, cfg: SlamConfig, guess=N
         return lambda poses, bind: cost_mod.stencil_exact_cost(
             poses, nbr, scan.points, cfg.map
         )
-    raise NotImplementedError(f"no cost function for cost_mode {cfg.cost_mode!r}")
+    raise ValueError(f"cost_mode {cfg.cost_mode!r} runs a whole-solve kernel, not a cost "
+                     "function (align dispatches it to _align_rollout)")
 
 
 def _align_rollout(key, guess, deviation, snap, scan, cfg: SlamConfig) -> PsoResult:
@@ -174,8 +178,10 @@ def align(
     guess: torch.Tensor,
     cfg: SlamConfig,
 ) -> Tuple[AlignState, PsoResult]:
-    """``NDTFrame::align`` (``ndtframe.cpp:251-266``): adaptive deviation + PSO,
+    """``NDTFrame::align`` (``ndtframe.cpp:251-266``): adaptive deviation +
+    the configured optimizer (PSO, or GLIR-PSO on the plain cost modes),
     then the winning pose re-scored with the exact cost."""
+    validate_config(cfg)
     dtype = guess.dtype
     if astate.iter < 2:
         deviation = torch.tensor(cfg.first_deviation, dtype=dtype, device=guess.device)
@@ -184,7 +190,7 @@ def align(
     if cfg.cost_mode.startswith("rollout"):
         result = _align_rollout(key, guess, deviation, snap, scan, cfg)
     else:
-        result = pso_solve(
+        result = OPTIMIZERS[cfg.optimizer](
             key, guess, deviation, make_cost_fn(snap, scan, cfg, guess), cfg.pso
         )
     if cfg.cost_mode != "exact":
@@ -348,7 +354,7 @@ def slam_step(
     Host synchronizations: none with recovery off.  With recovery on, after
     the cold-start scans, one read of the 0-d tracking-loss flag, and when
     it is set one read of the accept decision."""
-    check_supported(cfg)
+    validate_config(cfg)
     dtype = state.pose.dtype
     snap = ndt_map.snapshot(state.map, cfg.map)
     if state.step == 0:

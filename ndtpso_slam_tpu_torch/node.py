@@ -2,18 +2,26 @@
 
 Port of the single-session part of ``ndtpso_slam_tpu/node.py``
 (``NDTPSONode``, ``src/ndtpso_slam_node.cpp``): scans come from a scan log
-(``.npz``) or any caller, poses go to registered callbacks, and the run's
-poses are written as ``<out>.pose.csv``.  ``build_og`` (``--og``) keeps the
-occupancy raster in ``node.state.og``; ``recovery`` (``--recovery``) turns on
-tracking-loss detection and relocalization (``models/slam.py``).  Options the
-port cannot run yet (sparse ring, GLIR, frontal-point decimation, the stencil
-patch) raise NotImplementedError naming their ROADMAP item.  Every
-cost mode of the JAX package runs (``models/slam.py:SLAM_COST_MODES``).
+(``.bag``, ``.csv``, ``.npz`` or the native ``.ndtlog``, ``io/importers.py``)
+or any caller, poses go to registered callbacks, rate metrics are kept like
+the reference's per-scan report, and shutdown writes the export bundle
+(``utils/export.py``: ``<out>.pose.csv``, ``.map.csv``, ``.gnuplot``,
+``.cells.csv``, with ``save_map_images`` the map image and with ``build_og``
+the occupancy-grid image).  The session's state can be checkpointed and
+resumed (``utils/checkpoint.py``).  Every option of the JAX node's single
+session runs: every cost mode (``models/slam.py:SLAM_COST_MODES``), the
+GLIR-PSO optimizer on the plain cost modes, the occupancy raster
+(``--og``), tracking-loss recovery (``--recovery``), a sparse ring
+(``ring_rows``, with a warning when it overflows), the stencil patch
+(``patch_range_m``) and frontal-point decimation
+(``--prefer-frontal-points``).  Several sessions in one process (the JAX
+package's ``MultiSessionNode``, a repeated ``--scanlog``) are not ported
+(ROADMAP D1).
 
 Run over a log on the GPU::
 
-    python -m ndtpso_slam_tpu_torch.node --scanlog run.npz --out run \\
-        --cost-mode rollout_local --device cuda
+    python -m ndtpso_slam_tpu_torch.node --scanlog run.bag --out run \\
+        --cost-mode rollout_local --checkpoint run-state.npz
 """
 
 from __future__ import annotations
@@ -30,8 +38,10 @@ import numpy as np
 from ndtpso_slam_tpu_torch import config as cfgm
 from ndtpso_slam_tpu_torch.models import scan as scan_mod
 from ndtpso_slam_tpu_torch.models import slam
+from ndtpso_slam_tpu_torch.models.pso import OPTIMIZERS
 from ndtpso_slam_tpu_torch.ops import rng
-from ndtpso_slam_tpu_torch.utils import profiling
+from ndtpso_slam_tpu_torch.utils import checkpoint, profiling
+from ndtpso_slam_tpu_torch.utils import export as export_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,15 +68,20 @@ class NodeConfig:
     # local_exact: per-particle stencil rebind; rollout_local runs the same
     # solve as one CUDA kernel launch (models/slam.py:SLAM_COST_MODES).
     cost_mode: str = "local_exact"
+    # 'pso' (deployed) | 'glir' (GLIR-PSO, core.h:21-23; plain cost modes).
     optimizer: str = "pso"
     seed: int = 42
-    save_every: int = 10
+    save_every: int = 10  # keep every n-th scan's points for the export
     save_map_images: bool = False
     recovery: bool = False
     recovery_fitness_threshold: float = 0.15
     recovery_hypotheses: int = 8
+    # > 0: the stencil patch covering a scan of this range (MapConfig.
+    # stencil_patch_cells); a neighbour outside it counts as unbuilt.
     patch_range_m: float = 0.0
+    # > 0: a sparse ring of this many rows (MapConfig.ring_rows).
     ring_rows: int = 0
+    # PREFER_FRONTAL_POINTS beam decimation (config.h:11); off upstream.
     prefer_frontal_points: bool = False
 
     def slam_config(self) -> cfgm.SlamConfig:
@@ -107,18 +122,6 @@ class NodeConfig:
             optimizer=self.optimizer,
         )
 
-    def check_supported(self) -> None:
-        """Raise NotImplementedError for options the port cannot run yet."""
-        if self.prefer_frontal_points:
-            raise NotImplementedError(
-                "prefer_frontal_points in the node is not ported yet (ROADMAP A4)"
-            )
-        if self.patch_range_m > 0:
-            raise NotImplementedError(
-                "patch_range_m (the stencil patch) is not ported yet (ROADMAP A6)"
-            )
-        slam.check_supported(self.slam_config())
-
     @staticmethod
     def from_json(path: str, **overrides) -> "NodeConfig":
         with open(path) as f:
@@ -134,31 +137,16 @@ class NodeConfig:
         return NodeConfig(**data)
 
 
-def write_pose_csv(path: str, timestamps, poses, odoms=None) -> None:
-    """``<name>.pose.csv`` in the format of the native runtime's
-    ``runtime_write_pose_csv``: a header, then timestamp, pose and (when
-    known) odometry per row."""
-    poses = np.asarray(poses, np.float64).reshape(-1, 3)
-    with open(path, "w") as f:
-        f.write("timestamp,xP,yP,thP,xO,yO,thO\n")
-        for i, p in enumerate(poses):
-            f.write(f"{float(timestamps[i]):.6f},{p[0]:.5f},{p[1]:.5f},{p[2]:.5f}")
-            if odoms is None:
-                f.write(",,,\n")
-            else:
-                o = np.asarray(odoms[i], np.float64)
-                f.write(f",{o[0]:.5f},{o[1]:.5f},{o[2]:.5f}\n")
-
-
 class SlamNode:
     """Streaming SLAM session: feed scans, get poses."""
 
     def __init__(self, node_cfg: NodeConfig, verbose: bool = True, device="cuda"):
-        node_cfg.check_supported()
         self.cfg = node_cfg
         self.slam_cfg = node_cfg.slam_config()
+        slam.validate_config(self.slam_cfg)
         self.device = cfgm.resolve_device(device)
         self.state = slam.init_slam(self.slam_cfg, node_cfg.init_pose, self.device)
+        self.global_map = export_mod.GlobalMap(keep_every=node_cfg.save_every)
         self.meter = profiling.RateMeter()
         self.pose_callbacks: List[Callable] = []
         self.verbose = verbose
@@ -168,9 +156,12 @@ class SlamNode:
             if any(abs(v) > 1e-9 for v in node_cfg.mount_trans)
             else None
         )
-        self.timestamps: List[float] = []
-        self.poses: List[np.ndarray] = []
-        self.odoms: List[Optional[np.ndarray]] = []
+        self._warned_ring_overflow = False
+
+    @property
+    def poses(self) -> np.ndarray:
+        """[T, 3] poses of the scans this node processed."""
+        return self.global_map.poses
 
     def on_pose(self, callback: Callable) -> None:
         """Register a pose 'publisher' (timestamp, pose[3]) -> None."""
@@ -198,11 +189,23 @@ class SlamNode:
             key = rng.derive_key(self._key, self.state.step)
             self.state, pose, _cost = slam.slam_step(self.state, sc, key, self.slam_cfg)
             pose_np = pose.cpu().numpy().astype(np.float64)
-        self.timestamps.append(float(timestamp))
-        self.poses.append(pose_np)
-        self.odoms.append(None if odom is None else np.asarray(odom, np.float64))
+            self.global_map.add_scan(sc.points, sc.valid, pose_np)
+            self.global_map.add_pose(timestamp, pose_np, odom)
         for cb in self.pose_callbacks:
             cb(timestamp, pose_np)
+        if self.cfg.ring_rows > 0 and not self._warned_ring_overflow:
+            overflow = int(self.state.map.ring_overflow)
+            if overflow > 0:
+                # A cell that finds no ring row never builds and scores as
+                # outside the map: say so the first time it happens.
+                self._warned_ring_overflow = True
+                print(
+                    f"[ndtpso] WARNING: sparse ring overflow — {overflow} distinct cell(s) "
+                    f"got no ring row (ring_rows={self.cfg.ring_rows} exhausted; newly "
+                    "visited cells will not build). Increase NodeConfig.ring_rows by at "
+                    "least the reported count.",
+                    file=sys.stderr,
+                )
         if self.verbose and self.state.step > 1:
             extra = ""
             if self.slam_cfg.recovery.enabled:
@@ -231,25 +234,62 @@ class SlamNode:
         return np.array(poses)
 
     def shutdown(self, basename: Optional[str] = None) -> List[str]:
-        """Write ``<basename>.pose.csv``; returns the files written.  The rest
-        of the JAX package's export bundle (map CSV, gnuplot, images) is not
-        ported yet (ROADMAP A10)."""
+        """Write the export bundle (``ndtpso_slam_node.cpp:131-174``); returns
+        the files written."""
         if basename is None:
             basename = "ndtpso-" + time.strftime("%Y%m%d-%H%M%S")
-        path = f"{basename}.pose.csv"
-        odoms = None if any(o is None for o in self.odoms) else self.odoms
-        write_pose_csv(path, self.timestamps, self.poses, odoms)
-        return [path]
+        if self.cfg.ring_rows > 0:
+            overflow = int(self.state.map.ring_overflow)
+            if overflow > 0:
+                print(
+                    f"[ndtpso] ring overflow at shutdown: {overflow} distinct cell(s) never "
+                    f"built (ring_rows={self.cfg.ring_rows} too small — "
+                    f"{self.cfg.ring_rows + overflow} rows would have sufficed)",
+                    file=sys.stderr,
+                )
+        og = og_bbox = None
+        if self.state.og is not None:
+            og = self.state.og.og.cpu().numpy()
+            og_bbox = tuple(int(getattr(self.state.og, k))
+                            for k in ("min_x", "max_x", "min_y", "max_y"))
+        return export_mod.dump_map(
+            basename,
+            global_map=self.global_map,
+            save_poses=True,
+            save_points=True,
+            save_image=self.cfg.save_map_images,
+            map_cfg=self.slam_cfg.map,
+            pso_cfg=self.slam_cfg.pso,
+            og=og,
+            og_bbox=og_bbox,
+            og_cfg=self.slam_cfg.og,
+            map_state=self.state.map,
+        )
+
+    def save_checkpoint(self, path: str) -> None:
+        checkpoint.save(path, self.state)
+
+    def load_checkpoint(self, path: str) -> None:
+        self.state = checkpoint.restore(path, self.state, self.slam_cfg)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="ndtpso SLAM node (PyTorch port): run SLAM over a recorded scan log"
     )
-    ap.add_argument("--scanlog", required=True, help=".npz scan log")
+    ap.add_argument("--scanlog", required=True, action="append",
+                    help=".bag, .csv, .npz or .ndtlog scan log (one: several logs as "
+                    "concurrent sessions are not ported, ROADMAP D1)")
     ap.add_argument("--config", help="launch JSON (see launch/)")
-    ap.add_argument("--out", default=None, help="output basename: writes <out>.pose.csv")
-    ap.add_argument("--cost-mode", choices=list(slam.SLAM_COST_MODES), default=None)
+    ap.add_argument("--out", default=None, help="export basename")
+    ap.add_argument("--checkpoint", help="save the final SLAM state here (.npz)")
+    ap.add_argument("--resume", help="restore the SLAM state saved by --checkpoint first")
+    ap.add_argument("--cost-mode", choices=list(slam.SLAM_COST_MODES), default=None,
+                    help="exact | fast | fast_local | local_exact | rollout* (rollout "
+                    "modes need --max-beams as a multiple of 128)")
+    ap.add_argument("--optimizer", choices=sorted(OPTIMIZERS), default=None,
+                    help="pso (deployed, core.cpp:50-116) | glir (GLIR-PSO, core.h:21-23; "
+                    "the plain cost modes only)")
     ap.add_argument("--iterations", type=int, default=None)
     ap.add_argument("--population", type=int, default=None)
     ap.add_argument("--frame-size", type=float, default=None)
@@ -260,13 +300,24 @@ def main(argv=None) -> int:
     ap.add_argument("--og", action="store_true", help="build the occupancy grid")
     ap.add_argument("--recovery", action="store_true",
                     help="enable tracking-loss detection + multi-swarm relocalization")
+    ap.add_argument("--prefer-frontal-points", action="store_true",
+                    help="the reference's PREFER_FRONTAL_POINTS beam decimation "
+                    "(config.h:11; off upstream; lossy)")
+    ap.add_argument("--save-images", action="store_true",
+                    help="also write the rendered map image at shutdown")
     ap.add_argument("--quiet", action="store_true")
     ap.add_argument("--device", default=cfgm.DEFAULT_DEVICE,
                     help="torch device (default cuda; cpu runs the plain path)")
     args = ap.parse_args(argv)
+    if len(args.scanlog) > 1:
+        raise NotImplementedError(
+            "several --scanlog as concurrent sessions (the JAX package's "
+            "MultiSessionNode) are not ported yet (ROADMAP D1)"
+        )
 
     overrides = dict(
         cost_mode=args.cost_mode,
+        optimizer=args.optimizer,
         pso_iterations=args.iterations,
         pso_population=args.population,
         frame_size_m=args.frame_size,
@@ -274,10 +325,11 @@ def main(argv=None) -> int:
         max_beams=args.max_beams,
         seed=args.seed,
     )
-    if args.og:
-        overrides["build_og"] = True
-    if args.recovery:
-        overrides["recovery"] = True
+    for flag, field in ((args.og, "build_og"), (args.recovery, "recovery"),
+                        (args.prefer_frontal_points, "prefer_frontal_points"),
+                        (args.save_images, "save_map_images")):
+        if flag:
+            overrides[field] = True
     if args.config:
         node_cfg = NodeConfig.from_json(args.config, **overrides)
     else:
@@ -287,8 +339,11 @@ def main(argv=None) -> int:
 
     from ndtpso_slam_tpu_torch.io.importers import load_log
 
-    log = load_log(args.scanlog)
+    log = load_log(args.scanlog[0])
     node = SlamNode(node_cfg, verbose=not args.quiet, device=args.device)
+    if args.resume:
+        node.load_checkpoint(args.resume)
+        print(f"[ndtpso] resumed from {args.resume}", file=sys.stderr)
     t0 = time.time()
     poses = node.run_log(log)
     dt = time.time() - t0
@@ -296,6 +351,9 @@ def main(argv=None) -> int:
         f"[ndtpso] processed {len(poses)} scans in {dt:.2f}s ({len(poses) / dt:.2f} Hz)",
         file=sys.stderr,
     )
+    if args.checkpoint:
+        node.save_checkpoint(args.checkpoint)
+        print(f"[ndtpso] checkpoint -> {args.checkpoint}", file=sys.stderr)
     for f in node.shutdown(args.out):
         print(f"[ndtpso] wrote {f}", file=sys.stderr)
     return 0

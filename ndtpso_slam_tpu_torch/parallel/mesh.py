@@ -15,7 +15,9 @@ together:
   every cost evaluation;
 * ``exact``, ``fast``, ``fast_local``, ``fast_matmul``, ``local_exact``:
   plain PyTorch solves, one after another (the JAX package has no kernel for
-  them either).
+  them either), with ``optimizer="glir"`` GLIR-PSO solves; the rollout and
+  fused modes run the deployed PSO update rule only and refuse GLIR, as in
+  the JAX package.
 
 The JAX package's ``ROLLOUT_GRID_BLOCK`` (a TPU toolchain workaround) has no
 counterpart.  Sharding over several devices (``make_mesh``,
@@ -29,7 +31,7 @@ import torch
 from ndtpso_slam_tpu_torch.config import MapConfig, PSOConfig
 from ndtpso_slam_tpu_torch.models import cost as cost_mod
 from ndtpso_slam_tpu_torch.models.ndt_map import MapSnapshot
-from ndtpso_slam_tpu_torch.models.pso import PsoResult, pso_solve, pso_solve_batch
+from ndtpso_slam_tpu_torch.models.pso import OPTIMIZERS, PsoResult, pso_solve_batch
 from ndtpso_slam_tpu_torch.ops.rollout import solve_rollout_mode
 
 STENCIL_RADIUS = cost_mod.DEFAULT_STENCIL_RADIUS
@@ -75,8 +77,9 @@ def solve_batch_sharded(mesh, keys, guesses, deviations, snaps, points, valid, m
     _not_ported("solve_batch_sharded")
 
 
-def _solve_one(key, guess, deviation, snap, points, valid, map_cfg, pso_cfg, cost_mode):
-    """One plain solve in a per-solve cost mode."""
+def _solve_one(key, guess, deviation, snap, points, valid, map_cfg, pso_cfg, cost_mode,
+               optimizer="pso"):
+    """One plain solve in a per-solve cost mode, by ``optimizer``."""
     if cost_mode == "fast":
         cost_fn = lambda poses, bind: cost_mod.bound_cost(
             poses, cost_mod.bind_points(bind, snap, points, valid, map_cfg)
@@ -96,7 +99,7 @@ def _solve_one(key, guess, deviation, snap, points, valid, map_cfg, pso_cfg, cos
         cost_fn = lambda poses, bind: cost_mod.stencil_exact_cost(poses, nbr, points, map_cfg)
     else:
         cost_fn = lambda poses, bind: cost_mod.ndt_cost(poses, snap, points, valid, map_cfg)
-    return pso_solve(key, guess, deviation, cost_fn, pso_cfg)
+    return OPTIMIZERS[optimizer](key, guess, deviation, cost_fn, pso_cfg)
 
 
 def solve_batch(
@@ -119,10 +122,13 @@ def solve_batch(
         raise ValueError(
             f"unknown cost_mode {cost_mode!r}; expected one of {sorted(COST_MODES)}"
         )
-    if optimizer == "glir":
-        raise NotImplementedError("optimizer 'glir' is not ported yet (ROADMAP B3)")
-    if optimizer != "pso":
+    if optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {optimizer!r}; expected 'pso' | 'glir'")
+    if optimizer == "glir" and (cost_mode.startswith("rollout") or cost_mode.endswith("_fused")):
+        raise ValueError(
+            "optimizer='glir' runs through the per-solve cost modes only "
+            "(the rollout/fused kernels implement the deployed PSO update rule)"
+        )
     if cost_mode.startswith("rollout"):
         pose, cost = solve_rollout_mode(cost_mode, keys, guesses, deviations, snaps, points,
                                         valid, map_cfg, pso_cfg, early_exit)
@@ -147,7 +153,7 @@ def solve_batch(
         _solve_one(
             (int(keys[b, 0]), int(keys[b, 1])), guesses[b], deviations[b],
             MapSnapshot(mean=snaps.mean[b], inv_cov=snaps.inv_cov[b], built=snaps.built[b]),
-            points[b], valid[b], map_cfg, pso_cfg, cost_mode,
+            points[b], valid[b], map_cfg, pso_cfg, cost_mode, optimizer,
         )
         for b in range(guesses.shape[0])
     ]

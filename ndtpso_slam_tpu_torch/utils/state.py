@@ -5,15 +5,17 @@ a run carries from one scan to the next.  The dict is keyed by the JAX
 package's field paths (``map.mean_c``, ``map.slot_sum``, ``align.prev_pose``,
 ``pose``, ``step``, ``prev_ids``, ``og.og``, ``og.min_x``, ...), so a state
 taken from either implementation can continue in the other.  A state without
-an occupancy grid has no ``og.*`` keys.  Map arrays hold the real cells
-only; the port's spare scatter row (see ``models/ndt_map.py``) is added on
-the way in and dropped on the way out.
+an occupancy grid has no ``og.*`` keys.  Map arrays hold the real rows only:
+C per cell, and the ring's slot arrays C rows (dense) or ``ring_rows`` (a
+sparse ring, whose ``map.ring_map`` has C entries); the port's spare scatter
+row (see ``models/ndt_map.py``) is added on the way in and dropped on the
+way out.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -22,11 +24,7 @@ from ndtpso_slam_tpu_torch.config import SlamConfig, resolve_device
 from ndtpso_slam_tpu_torch.models import ndt_map, occupancy
 from ndtpso_slam_tpu_torch.models.slam import AlignState, SlamState
 
-# Map fields whose leading axis is the cell axis (they carry the spare row).
-_PER_CELL = tuple(
-    f.name for f in dataclasses.fields(ndt_map.NdtMapState)
-    if f.name not in ("ring_map", "ring_used", "ring_overflow")
-)
+_SLOTS = ("slot_sum", "slot_count", "slot_cov")
 _OG_BOUNDS = ("min_x", "max_x", "min_y", "max_y")
 
 
@@ -40,24 +38,54 @@ def snapshot_from_numpy(arrays: Dict[str, np.ndarray], device="cuda") -> ndt_map
     )
 
 
+def _map_rows(name: str, cfg: SlamConfig):
+    """The real rows of map field ``name`` under ``cfg`` (its leading axis
+    without the spare row), or None for a field without one: the 0-d
+    counters and a dense ring's empty ``ring_map``."""
+    c, r = cfg.map.num_cells, cfg.map.ring_rows
+    if name in ("ring_used", "ring_overflow") or (name == "ring_map" and r == 0):
+        return None
+    return r if name in _SLOTS and r > 0 else c
+
+
+def _state_items(state: SlamState):
+    """(JAX field path, value) of every field of the state: tensors as views
+    without the spare row, the host counters as int32 numpy scalars."""
+    for f in dataclasses.fields(ndt_map.NdtMapState):
+        v = getattr(state.map, f.name)
+        # Every map field with rows carries the spare one.
+        yield f"map.{f.name}", v[:-1] if v.dim() and v.shape[0] else v
+    yield "align.prev_pose", state.align.prev_pose
+    yield "align.pose_diff", state.align.pose_diff
+    yield "align.iter", np.asarray(state.align.iter, np.int32)
+    yield "pose", state.pose
+    yield "step", np.asarray(state.step, np.int32)
+    yield "fitness", state.fitness
+    yield "recoveries", np.asarray(state.recoveries, np.int32)
+    yield "prev_ids", state.prev_ids
+    if state.og is not None:
+        yield "og.og", state.og.og
+        for name in _OG_BOUNDS:
+            yield f"og.{name}", getattr(state.og, name)
+
+
+def _numpy(v) -> np.ndarray:
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+
+
 def slam_state_to_numpy(state: SlamState) -> Dict[str, np.ndarray]:
     """The state as {JAX field path: numpy array}."""
+    return {k: _numpy(v) for k, v in _state_items(state)}
+
+
+def slam_state_layout(state: SlamState) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+    """{JAX field path: (shape, numpy dtype string)} of
+    :func:`slam_state_to_numpy`'s arrays, without copying them."""
     out = {}
-    for f in dataclasses.fields(ndt_map.NdtMapState):
-        v = getattr(state.map, f.name).cpu().numpy()
-        out[f"map.{f.name}"] = v[:-1] if f.name in _PER_CELL else v
-    out["align.prev_pose"] = state.align.prev_pose.cpu().numpy()
-    out["align.pose_diff"] = state.align.pose_diff.cpu().numpy()
-    out["align.iter"] = np.asarray(state.align.iter, np.int32)
-    out["pose"] = state.pose.cpu().numpy()
-    out["step"] = np.asarray(state.step, np.int32)
-    out["fitness"] = state.fitness.cpu().numpy()
-    out["recoveries"] = np.asarray(state.recoveries, np.int32)
-    out["prev_ids"] = state.prev_ids.cpu().numpy()
-    if state.og is not None:
-        out["og.og"] = state.og.og.cpu().numpy()
-        for name in _OG_BOUNDS:
-            out[f"og.{name}"] = getattr(state.og, name).cpu().numpy()
+    for k, v in _state_items(state):
+        dtype = (torch.empty((), dtype=v.dtype).numpy().dtype if isinstance(v, torch.Tensor)
+                 else v.dtype)
+        out[k] = (tuple(v.shape), dtype.str)
     return out
 
 
@@ -66,7 +94,6 @@ def slam_state_from_numpy(
 ) -> SlamState:
     """Build a port SlamState on ``device`` from {JAX field path: array}."""
     dev = resolve_device(device)
-    c = cfg.map.num_cells
 
     def t(key):
         return torch.from_numpy(np.array(arrays[key])).to(dev)
@@ -74,10 +101,16 @@ def slam_state_from_numpy(
     fields = {}
     for f in dataclasses.fields(ndt_map.NdtMapState):
         v = t(f"map.{f.name}")
-        if f.name in _PER_CELL:
-            if v.shape[0] != c:
-                raise ValueError(f"map.{f.name} has {v.shape[0]} rows, config has {c} cells")
-            v = torch.cat([v, torch.zeros_like(v[:1])])
+        rows = _map_rows(f.name, cfg)
+        if rows is not None:
+            if v.ndim == 0 or v.shape[0] != rows:
+                raise ValueError(f"map.{f.name} has shape {tuple(v.shape)}, the config needs "
+                                 f"{rows} rows (cells {cfg.map.num_cells}, ring_rows "
+                                 f"{cfg.map.ring_rows})")
+            v = torch.cat([v, torch.full_like(v[:1], -1 if f.name == "ring_map" else 0)])
+        elif f.name == "ring_map" and v.numel():
+            raise ValueError(f"map.ring_map has {v.numel()} entries: a sparse-ring state, "
+                             "the config has a dense ring (ring_rows 0)")
         fields[f.name] = v
     if ("og.og" in arrays) != cfg.og.enabled:
         raise ValueError(f"the arrays {'carry' if 'og.og' in arrays else 'lack'} an occupancy "

@@ -286,6 +286,24 @@ def test_solve_batch_matches_jax(world, mode):
     np.testing.assert_allclose(got.pose.numpy(), np.asarray(ref.pose), atol=patol)
 
 
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+def test_solve_batch_glir_matches_jax(world, mode):
+    """solve_batch(optimizer="glir") at B = 3 against the JAX package's, in
+    a plain cost mode of each kind: each solve is a GLIR-PSO solve of its
+    own, held to the mode's tolerance; the rollout and fused modes refuse
+    GLIR with the JAX package's ValueError."""
+    cfg_j = jcfg.PSOConfig(iterations=8, population=64)
+    cfg_t = tcfg.PSOConfig(iterations=8, population=64)
+    ref = jmesh.solve_batch(*_jargs(world), JMAP, cfg_j, mode, optimizer="glir")
+    got = tmesh.solve_batch(*_targs(world), TMAP, cfg_t, mode, optimizer="glir")
+    rtol, atol, patol = _TOL[mode]
+    np.testing.assert_allclose(got.cost.numpy(), np.asarray(ref.cost), rtol=rtol, atol=atol)
+    np.testing.assert_allclose(got.pose.numpy(), np.asarray(ref.pose), atol=patol)
+    for refused in ("rollout_local", "fast_fused"):
+        with pytest.raises(ValueError, match="glir"):
+            tmesh.solve_batch(*_targs(world), TMAP, cfg_t, refused, optimizer="glir")
+
+
 @pytest.mark.parametrize("mode", _TURBO)
 def test_turbo_modes_converge_to_truth(world, mode):
     """Turbo modes draw from Philox, not the TPU's stream: held to the JAX
@@ -336,8 +354,6 @@ def test_solve_batch_rejects_unknown_and_unported(world):
     cfg = tcfg.PSOConfig(iterations=2, population=8)
     with pytest.raises(ValueError, match="unknown cost_mode"):
         tmesh.solve_batch(*args, TMAP, cfg, "rollout_brf16")
-    with pytest.raises(NotImplementedError, match="B3"):
-        tmesh.solve_batch(*args, TMAP, cfg, "fast", optimizer="glir")
     with pytest.raises(NotImplementedError, match="E1"):
         tmesh.make_mesh()
     with pytest.raises(NotImplementedError, match="E1"):

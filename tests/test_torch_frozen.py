@@ -313,3 +313,64 @@ def test_pso_solve_batch_equals_loop_of_pso_solve(world, rng_mode, early_exit):
 def test_pso_rejects_unknown_rng_mode():
     with pytest.raises(ValueError, match="rng_mode"):
         tpso.pso_draws((1, 2), 4, 2, torch.float32, "cpu", "hardware")
+
+
+# ----------------------------------------------------------------- GLIR-PSO
+
+
+def _glir_both(cost_t, cost_j, guess, deviation, key, cfg):
+    """The port's glir_pso_solve and the JAX package's (compiled, as its
+    align runs it) on the same cost, key and start."""
+    from ndtpso_slam_tpu.models import pso as jpso
+
+    jcfg_pso = jcfg.PSOConfig(iterations=cfg.iterations, population=cfg.population)
+    jres = jax.jit(lambda g, d: jpso.glir_pso_solve(
+        (np.uint32(key[0]), np.uint32(key[1])), g, d, cost_j, jcfg_pso))(
+        jnp.asarray(guess), jnp.asarray(deviation))
+    tres = tpso.glir_pso_solve(key, torch.from_numpy(guess), torch.from_numpy(deviation),
+                               cost_t, cfg)
+    return tres, jres
+
+
+@pytest.mark.parametrize("problem", ["analytic", "scan_pair"])
+def test_glir_pso_matches_jax(world, problem):
+    """glir_pso_solve against the JAX package's on a quadratic bowl and on a
+    scan pair (the exact NDT cost of world's points, bound near the truth):
+    the Threefry draws it consumes bit for bit (its init and iteration
+    counters, tests/test_pso.py's protocol), the pose within 5e-4 and the
+    cost within rtol 1e-5; and it improves on the guess."""
+    from ndtpso_slam_tpu.ops import rng as jrng
+
+    cfg = tcfg.PSOConfig(iterations=12, population=40)
+    key = (0x1234, 0xBEEF)
+    u_g, u_p, r1, r2 = tpso.pso_draws(key, cfg.population, cfg.iterations, torch.float32, "cpu")
+    g_ctr, p_ctr = jrng.pso_init_pairs(cfg.population)
+    jkey = (np.uint32(key[0]), np.uint32(key[1]))
+    np.testing.assert_array_equal(u_g.numpy(), np.asarray(jrng.uniform_pairs(jkey, g_ctr)[0]))
+    np.testing.assert_array_equal(u_p.numpy(), np.asarray(jrng.uniform_pairs(jkey, p_ctr)[0]))
+    for i in (0, cfg.iterations - 1):
+        jr1, jr2 = jrng.uniform_pairs(jkey, jrng.pso_iter_pairs(i, cfg.population))
+        np.testing.assert_array_equal(r1[i].numpy(), np.asarray(jr1))
+        np.testing.assert_array_equal(r2[i].numpy(), np.asarray(jr2))
+
+    if problem == "analytic":
+        target = np.float32([0.7, -1.2, 0.3])
+        scale = np.float32([1.0, 2.0, 5.0])
+        # A bowl with its floor at -10, as NDT costs are negative sums: a
+        # relative tolerance means nothing at a minimum of 0.
+        cost_t = lambda p, b: (((p - torch.from_numpy(target)) ** 2 * torch.from_numpy(scale))
+                               .sum(-1) - 10.0)
+        cost_j = lambda p, b: ((p - target) ** 2 * scale).sum(-1) - 10.0
+        guess, deviation = np.float32([0.4, -0.9, 0.1]), np.float32([0.5, 0.5, 0.3])
+    else:
+        tsnap, jsnap = snapshot_from_numpy(world["snap"], "cpu"), _jsnap(world)
+        pts, val = world["points"][0], world["valid"][0]
+        cost_t = lambda p, b: tcost.ndt_cost(p, tsnap, torch.from_numpy(pts),
+                                             torch.from_numpy(val), TMAP)
+        cost_j = lambda p, b: jcost.ndt_cost(p, jsnap, jnp.asarray(pts), jnp.asarray(val), JMAP)
+        guess, deviation = np.float32([0.1, -0.08, 0.02]), np.float32([0.2, 0.2, 0.05])
+    tres, jres = _glir_both(cost_t, cost_j, guess, deviation, key, cfg)
+    np.testing.assert_allclose(tres.pose.numpy(), np.asarray(jres.pose), atol=5e-4)
+    np.testing.assert_allclose(float(tres.cost), float(jres.cost), rtol=1e-5)
+    start = cost_t(torch.from_numpy(guess)[None], None)[0]
+    assert float(tres.cost) < float(start)

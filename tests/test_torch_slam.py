@@ -260,18 +260,6 @@ def test_default_device_is_cuda_and_raises_without_gpu(log):
                          log.range_max, tc.scan)
 
 
-@pytest.mark.parametrize("override,roadmap", [
-    (dict(optimizer="glir"), "B3"),
-    (dict(ring_rows=64), "A5"),
-    (dict(prefer_frontal_points=True), "A4"),
-    (dict(patch_range_m=30.0), "A6"),
-    (dict(cost_mode="rollout_local_turbo", optimizer="glir"), "ROADMAP"),
-])
-def test_unported_options_raise(override, roadmap):
-    with pytest.raises(NotImplementedError, match=roadmap):
-        SlamNode(NodeConfig(**{**SMALL, **override}), verbose=False, device="cpu")
-
-
 @pytest.mark.parametrize("cost_mode", ["exact", "fast"])
 def test_node_recovery_relocalizes_after_kidnap(cost_mode, capsys):
     """The node with recovery on (the CLI's --recovery) over
@@ -310,8 +298,14 @@ def test_npz_log_roundtrip(log, tmp_path):
     got = load_log(path)
     np.testing.assert_array_equal(got.ranges, log.ranges)
     assert got.poses is None and got.range_max == log.range_max
-    with pytest.raises(NotImplementedError, match="A10"):
-        load_log(str(tmp_path / "l.bag"))
+    from ndtpso_slam_tpu_torch.io.rosbag import write_bag
+
+    bag = str(tmp_path / "l.bag")
+    write_bag(bag, log.ranges, log.timestamps, log.angle_min, log.angle_increment,
+              log.range_max, odoms=log.odoms)
+    got = load_log(bag)
+    np.testing.assert_array_equal(got.ranges, log.ranges)
+    np.testing.assert_allclose(got.odoms, log.odoms, atol=1e-9)
 
 
 @pytest.fixture(scope="module")
