@@ -145,6 +145,35 @@ their kernels-line entries carry the C each ran with (`cluster`).
       checkpointed after 25 scans, restored into a fresh node and run to
       the end: poses bit-equal to the uninterrupted run's.
 
+9. Fleets and sessions (parallel/fleet.py, parallel/sessions.py, the
+   node's MultiSessionNode):
+   a. bench.py's 8-robot flat fleet at deployment scale
+      (slam_fullscale_8robots_r8192_flat_rollout_local, bench.py:400-487):
+      make_log(seed=2 + r, 50 scans, world_size=50) for r < 8, 300 m / 0.5 m
+      / 100 slots with a sparse ring of 8,192 rows, P=50, I=30, N=384,
+      rollout_local, keys [3, 9 + r], through run_offline_fleet: the
+      per-robot gate of phase 4, exactly 49 K1 launches (B=8 each) and 2
+      row_scatter launches per step (the wrappers' own counts), aggregate
+      scans/s, the pool's step p50/p95, device kernels per fleet step, peak
+      memory; the row_scatter calls of one step against their plain version
+      and the 6 indexed assignments they replace; each robot's poses
+      against its solo run under deterministic algorithms (bit-equal where
+      the launches ran at the solo launches' cluster size, else phase 3's
+      tolerance, the reason printed), and again over 8 scans in rollout (K2
+      at B=8); K1 at B=8 against its plain version, 8 B=1 launches and its
+      bound;
+   b. two sensors' .npz logs (10 Hz and 5 Hz) with launch/lidar_front.json
+      and lidar_back.json through `python -m ndtpso_slam_tpu_torch.node`
+      with two --scanlog (a subprocess, --deterministic): exit 0, the
+      duo-s0.* and duo-s1.* bundles, each pose CSV equal to a solo SlamNode
+      of seed + 101·i under the same rule;
+   c. 7c's kidnap in a SlamSessionPool of 8 sessions with recovery on:
+      robot 3 gets the kidnapped scan, the others the healthy one; one
+      accepted recovery within 7c's gate, the other robots' map rows
+      bit-equal before and after the escalation, the launches (K1 once, K3
+      44 times, row_scatter 4), the event's wall time against the 100 ms
+      period, the escalation at 7c's other keys reported.
+
 Each kernel's entry in the kernels line carries its bound: the larger of
 the bytes its function must move over the HBM rate and its operations
 over the peak rate of the pipe they need (below).
@@ -155,6 +184,7 @@ kernel, then {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -334,6 +364,16 @@ def _pack(snap, mc, guesses, points, valid):
         for g in guesses
     ]
     return torch.stack([s for s, _ in packed]), torch.stack([p for _, p in packed])
+
+
+def _pack_local(snaps, mc, guesses, points, valid):
+    """K1's packed inputs for B solves on per-solve snapshots, as
+    ops/rollout.py:solve_rollout_mode packs them."""
+    from ndtpso_slam_tpu_torch.models import cost
+    from ndtpso_slam_tpu_torch.ops import rollout_local as rl
+
+    return rl.pack_rollout_local_inputs(
+        cost.bind_neighborhood(guesses, snaps, points, valid, mc), points)
 
 
 def compare_kernel(keys, guesses, devs, sten, pts, cfg, mc):
@@ -2661,6 +2701,519 @@ def phase_whole_node(lg_main, world):
     return entry
 
 
+# ---------------------------------------------------------------- phase 9
+
+# 9a: bench.py's slam_fullscale_8robots_r8192_flat_rollout_local workload
+# (bench.py:400-410, 445-487): 8 robots, 50 scans each, a sparse ring of
+# 8,192 rows, keys [3, 9 + r].
+FLEET_B = 8
+FLEET_SCANS = 50
+FLEET_RING_ROWS = 8192
+FLEET_K2_SCANS = 8
+FLEET_PROFILE_STEPS = 10
+# 9b: two sensors' logs at their rates: (name, period s, scans, heading).
+DUO = (("front", 0.1, 20, 0.0), ("back", 0.2, 10, float(np.pi)))
+DUO_LAUNCH = ("launch/lidar_front.json", "launch/lidar_back.json")
+# 9c: the robot of the pool that gets 7c's kidnapped scan.
+KIDNAP_ROBOT = 3
+
+
+def _fleet_cfg(cost_mode="rollout_local"):
+    """9a's configuration: scan.launch scale with a sparse ring."""
+    from ndtpso_slam_tpu_torch import config as C
+
+    return C.SlamConfig(pso=C.PSOConfig(iterations=30, population=50),
+                        map=C.MapConfig(size_m=300.0, cell_side_m=0.5, window_slots=100,
+                                        ring_rows=FLEET_RING_ROWS),
+                        scan=C.ScanConfig(max_beams=384), cost_mode=cost_mode)
+
+
+def fleet_world(dev, b=FLEET_B, n_scans=FLEET_SCANS):
+    """9a's logs (make_log(seed=2 + r, 50 scans, world_size=50)), their
+    scans on ``dev`` [B, T, 384, ...], the start poses and the keys."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.io import synthetic
+    from ndtpso_slam_tpu_torch.models import scan as scan_mod
+
+    cfg = _fleet_cfg()
+    logs = [synthetic.make_log(seed=2 + r, n_scans=n_scans, n_beams=360, world_size=50.0)
+            for r in range(b)]
+    loaded = [[scan_mod.load_laser(x, lg.angle_min, lg.angle_increment, lg.range_max, cfg.scan,
+                                   cfg.map, device=dev) for x in lg.ranges] for lg in logs]
+    stack = lambda name: torch.stack([torch.stack([getattr(s, name) for s in row])
+                                      for row in loaded])
+    return dict(logs=logs, scans=scan_mod.Scan(points=stack("points"), valid=stack("valid")),
+                init=np.stack([lg.poses[0] for lg in logs]).astype(np.float32),
+                keys=np.stack([np.full(b, 3), np.arange(9, 9 + b)], -1), dev=dev)
+
+
+def _steps(scans, t):
+    from ndtpso_slam_tpu_torch.models.scan import Scan
+
+    return Scan(points=scans.points[:, :t], valid=scans.valid[:, :t])
+
+
+@contextlib.contextmanager
+def _solves_logged(kernel):
+    """Within: the fleet's and the solo step's calls of solve_rollout_mode
+    (ops/rollout.py) recorded: log["cs"] the cluster size of each call's
+    launch (``kernel.LAST_CLUSTER``), log["args"] the last call's
+    arguments."""
+    from unittest import mock
+
+    from ndtpso_slam_tpu_torch.models import slam
+    from ndtpso_slam_tpu_torch.ops import rollout as ro
+    from ndtpso_slam_tpu_torch.parallel import fleet
+
+    log = {"cs": [], "args": None}
+
+    def recording(*args):
+        out = ro.solve_rollout_mode(*args)
+        log["cs"].append(kernel.LAST_CLUSTER)
+        log["args"] = args
+        return out
+
+    with mock.patch.object(fleet, "solve_rollout_mode", recording), \
+            mock.patch.object(slam, "solve_rollout_mode", recording):
+        yield log
+
+
+def _fleet_vs_solo(w, cfg, n_scans, kernel_name):
+    """Under deterministic algorithms: the fleet over the first n_scans
+    scans, then each robot's solo run_offline.  Each robot's poses must be
+    bit-equal to its solo run's where every fleet launch of the kernel ran at
+    the solo launches' cluster size, else within phase 3's tolerance, with
+    the reason printed.  Returns (the launch counts of the fleet run, the
+    arguments of its last solve_rollout_mode call, its cluster sizes)."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.models import scan as scan_mod
+    from ndtpso_slam_tpu_torch.models import slam
+    from ndtpso_slam_tpu_torch.parallel import fleet
+
+    scans = _steps(w["scans"], n_scans)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with _solves_logged(_launch_counts()[kernel_name]) as log:
+            _reset_counts()
+            states = slam.init_slam_batch(cfg, w["init"], w["dev"])
+            _, fposes, _ = fleet.run_offline_fleet(states, scans, w["keys"], cfg)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            del states
+            fleet_cs = sorted(set(log["cs"]))
+            last_args = log["args"]
+            equal, worst, solo_cs = 0, 0.0, set()
+            for r in range(len(w["init"])):
+                log["cs"].clear()
+                st = slam.init_slam(cfg, tuple(w["init"][r]), w["dev"])
+                _, sposes, _ = slam.run_offline(st, scan_mod.Scan(points=scans.points[r],
+                                                                  valid=scans.valid[r]),
+                                                tuple(int(k) for k in w["keys"][r]), cfg)
+                cs = set(log["cs"])
+                solo_cs |= cs
+                diff = float((fposes[r] - sposes).abs().max())
+                worst = max(worst, diff)
+                if cs == set(fleet_cs):
+                    check(torch.equal(fposes[r], sposes),
+                          f"9a {cfg.cost_mode}: robot {r} differs from its solo run at equal "
+                          f"cluster size {fleet_cs}: max |dpose| {diff:.3e}")
+                    equal += 1
+                else:
+                    check(diff <= TRAJ_ATOL, f"9a {cfg.cost_mode}: robot {r} vs solo {diff:.3e}")
+                    print(f"[phase 9a] {cfg.cost_mode} robot {r}: the fleet launched at C "
+                          f"{fleet_cs}, its solo run at C {sorted(cs)}: summed in other orders, "
+                          f"held to {TRAJ_ATOL} (max |dpose| {diff:.3e})")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"[phase 9a] {cfg.cost_mode} fleet of {len(w['init'])} x {n_scans} scans against the "
+          f"solo runs (deterministic algorithms): {equal} of {len(w['init'])} robots bit-equal "
+          f"(fleet C {fleet_cs}, solo C {sorted(solo_cs)}), max |dpose| {worst:.3e}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    return counts, last_args, fleet_cs
+
+
+def _fleet_scatter(w, cfg, states):
+    """9a: the row_scatter calls of one fleet step (the step after the run,
+    on its state and the next scan's ids) against the plain version and the
+    six indexed assignments they replace (phase 6d's three ways,
+    ``_time_split``: CUDA events back to back, device busy per call, host
+    time), on copies of the fields."""
+    from unittest import mock
+
+    import torch
+
+    from ndtpso_slam_tpu_torch.ops import row_scatter as rsc
+    from ndtpso_slam_tpu_torch.parallel import fleet
+
+    from ndtpso_slam_tpu_torch.models.scan import Scan
+
+    calls = []
+    with mock.patch.object(fleet, "row_scatter",
+                           lambda ops, idx, vals: calls.append((ops, idx, vals)) or ops):
+        fleet.fleet_pool_step(states, Scan(points=w["scans"].points[:, -1],
+                                           valid=w["scans"].valid[:, -1]),
+                              w["keys"], np.ones(len(w["init"]), bool), cfg)
+    check(len(calls) == 2, f"9a: {len(calls)} row_scatter calls in a fleet step, expected 2")
+    copies = lambda: [([op.clone() for op in ops], idx, vals) for ops, idx, vals in calls]
+    kern, plain, indexed = copies(), copies(), copies()
+    for (ko, idx, vals), (po, _, _), (io, _, _) in zip(kern, plain, indexed):
+        rsc.row_scatter(ko, idx, vals)
+        rsc.row_scatter_reference(po, idx, vals)
+        for op, v in zip(io, vals):
+            op[idx] = v
+        check(all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(ko, po, io)),
+              "9a: the fleet's row_scatter differs from its plain version or indexed assignment")
+    fn_k = lambda: [rsc.row_scatter(o, i, v) for o, i, v in kern]
+    fn_p = lambda: [rsc.row_scatter_reference(o, i, v) for o, i, v in plain]
+    fn_i = lambda: [op.__setitem__(i, x) for o, i, v in indexed for op, x in zip(o, v)]
+    # Device busy as phase 6d takes it: the mean recorded launch times the
+    # launches of a call (late in a run the profiler drops records).
+    kt, it = _time_split(fn_k, 50, 2), _time_split(fn_i, 50, 6)
+    plain_ms = _events_ms(fn_p, 5)
+    m = calls[0][1].shape[0]
+    nbytes = sum(8.0 * m + 2 * len(ops) * 4.0 * ops[0].shape[1] * int(torch.unique(idx).numel())
+                 for ops, idx, _ in calls)
+    bnd = bound(nbytes)
+    print(f"[phase 9a] row_scatter on one fleet step's ids (M={m} rows, W=2 and W=3, 3 fields "
+          f"each, {calls[0][0][0].shape[0]} rows per field): kernel = plain = indexed "
+          f"assignment bit for bit; the 2 launches {kt['ms']:.4f} ms back to back (events), "
+          f"device busy {kt['device_ms']:.4f} ms per step ({kt['device_ops']:.1f} operations "
+          f"recorded per call), host {kt['host_us']:.1f} us; the 6 indexed assignments "
+          f"{it['ms']:.4f} ms, device busy {it['device_ms']:.4f} ms ({it['device_ops']:.1f} "
+          f"operations recorded), host {it['host_us']:.1f} us; plain {plain_ms:.3f} ms; bound "
+          f"{bnd[0]:.5f} ms ({bnd[1]})")
+    return kt, it, plain_ms, bnd
+
+
+def phase_fleet(dev):
+    """9a: the flat fleet at deployment scale.  Returns the kernels-line
+    entries of K1 in the fleet and of row_scatter on the fleet build."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.models import slam
+    from ndtpso_slam_tpu_torch.models.scan import Scan
+    from ndtpso_slam_tpu_torch.ops import rollout_local as rl
+    from ndtpso_slam_tpu_torch.parallel import fleet
+    from ndtpso_slam_tpu_torch.parallel.sessions import SlamSessionPool
+
+    cfg = _fleet_cfg()
+    w = fleet_world(dev)
+    b, t = w["scans"].valid.shape[:2]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    states = slam.init_slam_batch(cfg, w["init"], dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    states, poses, _ = fleet.run_offline_fleet(states, w["scans"], w["keys"], cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    want = {n: {"rollout_local": t - 1, "row_scatter": 2 * t}.get(n, 0) for n in counts}
+    check(counts == want, f"9a: launches {counts}, expected {want}")
+    p = poses.cpu().numpy()
+    check(np.isfinite(p).all() and p.shape == (b, t, 3), "9a: poses not finite [B, T, 3]")
+    gt = np.stack([lg.poses for lg in w["logs"]])
+    err = np.hypot(p[..., 0] - gt[..., 0], p[..., 1] - gt[..., 1])
+    check((err.mean(axis=1) < GATE_MEAN_M).all() and (err.max(axis=1) < GATE_MAX_M).all(),
+          f"9a: per-robot gate: mean {err.mean(axis=1).round(4)}, max {err.max(axis=1).round(4)}")
+    used = states.map.ring_used.cpu().numpy()
+    check((states.map.ring_overflow == 0).all().item(), "9a: the sparse ring overflowed")
+
+    # The step's latency through the session pool: each poll ends in the
+    # poses' copy to the host.
+    pool = SlamSessionPool(cfg, w["init"], w["keys"], dev)
+    poll_s = []
+    for i in range(t):
+        for r in range(b):
+            pool.submit(r, Scan(points=w["scans"].points[r, i], valid=w["scans"].valid[r, i]))
+        ts = time.perf_counter()
+        pool.poll()
+        poll_s.append(time.perf_counter() - ts)
+    p50, p95 = _percentiles(poll_s)
+    del pool
+
+    # Device kernels per fleet step: the last scans fed again.
+    idx = range(t - FLEET_PROFILE_STEPS, t)
+    rows, prof_wall = _trace(lambda: [fleet.fleet_pool_step(
+        states, Scan(points=w["scans"].points[:, i], valid=w["scans"].valid[:, i]), w["keys"],
+        np.ones(b, bool), cfg) for i in idx])
+    dev_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+    kern_per_step = sum(e.count for e in rows) / FLEET_PROFILE_STEPS
+    busy = sum(dev_us(e) for e in rows) / 1e3 / FLEET_PROFILE_STEPS
+    mc, pc = cfg.map, cfg.pso
+    print(f"[phase 9a] flat fleet, {b} robots x {t} scans ({mc.size_m:.0f} m / {mc.cell_side_m} m"
+          f" / {mc.window_slots} slots, sparse ring {mc.ring_rows} rows, P={pc.population} "
+          f"I={pc.iterations} N={cfg.scan.max_beams}, {cfg.cost_mode}): per-robot mean err "
+          f"{err.mean(axis=1).round(4).tolist()} m, max {err.max(axis=1).round(4).tolist()} m "
+          f"(gate {GATE_MEAN_M} / {GATE_MAX_M}); {b * t / wall:.2f} scans/s aggregate "
+          f"({wall:.3f} s for {b * t}); pool step latency p50 {p50:.3f} ms p95 {p95:.3f} ms; "
+          f"launches {counts['rollout_local']} K1, {counts['row_scatter']} row_scatter; peak "
+          f"device memory {peak / 2**30:.3f} GiB; ring rows used {used.tolist()}")
+    print(f"[phase 9a] profiled, {FLEET_PROFILE_STEPS} more fleet steps: {kern_per_step:.1f} "
+          f"device kernels per step, busy {busy:.3f} of {prof_wall / FLEET_PROFILE_STEPS:.3f} "
+          f"ms per step ({100 * busy * FLEET_PROFILE_STEPS / prof_wall:.1f}%)")
+    scatter = _fleet_scatter(w, cfg, states)
+    del states
+
+    _, k1_args, fleet_cs = _fleet_vs_solo(w, cfg, t, "rollout_local")
+    counts2, k2_args, _ = _fleet_vs_solo(w, _fleet_cfg("rollout"), FLEET_K2_SCANS, "rollout")
+    check(counts2["rollout"] == FLEET_K2_SCANS - 1, f"9a rollout: K2 launches {counts2}")
+    k2 = _fleet_k2(k2_args, counts2["rollout"])
+
+    _, keys, guesses, devs, snaps, points, valid, mc, pso_cfg, _ = k1_args
+    sten, pts = _pack_local(snaps, mc, guesses, points, valid)
+    dpose, dcost = compare_kernel(keys, guesses, devs, sten, pts, pso_cfg, mc)
+    ms = _events_ms(lambda: rl.pso_rollout_local(keys, guesses, devs, sten, pts, pso_cfg, mc), 50)
+    cluster = rl.pso_rollout_local.LAST_CLUSTER
+    one = lambda i: (keys[i:i + 1], guesses[i:i + 1], devs[i:i + 1], sten[i:i + 1], pts[i:i + 1])
+    ms_b1 = _events_ms(lambda: [rl.pso_rollout_local(*one(i), pso_cfg, mc) for i in range(b)], 20)
+    plain_ms = _events_ms(lambda: rl.pso_rollout_local_reference(keys, guesses, devs, sten, pts,
+                                                                 pso_cfg, mc), 2)
+    bnd = _rollout_local_bound(sten, pts, pso_cfg.population, [pso_cfg.iterations] * b)
+    print(f"[phase 9a] K1 on the fleet's last solve (B={b}, N={pts.shape[1]}): kernel vs plain "
+          f"max |dpose| {dpose:.3e} max |dcost| {dcost:.3e}; {ms:.4f} ms at B={b} (C={cluster}) "
+          f"against {ms_b1:.4f} ms for {b} B=1 launches; plain {plain_ms:.3f} ms; bound "
+          f"{bnd[0]:.6f} ms ({bnd[1]}, {100 * bnd[0] / ms:.2f}% of it)")
+    k1 = _entry("rollout_local_fleet", SRC + "rollout_local.cu",
+                "ndtpso_slam_tpu/ops/pallas_rollout.py:551", counts["rollout_local"],
+                max(dpose, dcost), ms, plain_ms, bnd, cluster=cluster, batch=b, b1_x8_ms=ms_b1)
+    kt, it, s_plain, s_bnd = scatter
+    rs = _entry("row_scatter_fleet", SRC + "row_scatter.cu", "experiments/scatter_unique_ab.py:63",
+                counts["row_scatter"], 0.0, kt["ms"], s_plain, s_bnd, calls_per_step=2,
+                device_ms=kt["device_ms"], host_us=kt["host_us"], indexed_assignment=it)
+    return k1, k2, rs
+
+
+def _fleet_k2(args, launches):
+    """9a: K2 on the rollout fleet's last solve (its recorded
+    solve_rollout_mode arguments, B = the aligning robots), against its
+    plain version at the launch's cluster size with phase 5a's rollout
+    tolerances, timed.  Returns its kernels-line entry."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.models import cost
+    from ndtpso_slam_tpu_torch.ops import rollout as ro
+
+    _, keys, guesses, devs, snaps, points, valid, mc, pso_cfg, ee = args
+    b = keys.shape[0]
+    sten, pts = ro.pack_rollout_inputs(cost.bind_neighborhood(guesses, snaps, points, valid, mc),
+                                       points)
+    packed = (keys, guesses, devs, sten, pts, pso_cfg, mc)
+    kern = lambda: ro.pso_rollout(*packed, early_exit=ee)
+    got = kern()
+    torch.cuda.synchronize()
+    cluster = ro.pso_rollout.LAST_CLUSTER
+    plain = lambda: ro.pso_rollout_reference(*packed, early_exit=ee, cluster=cluster or 1)
+    ref, binds = _recorded_binds(plain)
+    dpose, dcost = _compare(f"9a rollout fleet B={b}", got, ref, *_TOLERANCES["rollout"])
+    ms = _events_ms(kern, 20)
+    plain_ms = _events_ms(plain, 2)
+    live = _live_iterations(binds, ee, pso_cfg.iterations)
+    bnd = _rollout_bound(sten, pts, pso_cfg.population, live)
+    print(f"[phase 9a] K2 on the rollout fleet's last solve (B={b}, N={pts.shape[-1]}, "
+          f"P={pso_cfg.population}, I={pso_cfg.iterations}): kernel vs plain at C={cluster} max "
+          f"|dpose| {dpose:.3e} max |dcost| {dcost:.3e}; {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bnd[0]:.6f} ms ({bnd[1]}, {100 * bnd[0] / ms:.2f}% of it)")
+    return _entry("rollout_fleet", SRC + "rollout.cu", "ndtpso_slam_tpu/ops/pallas_rollout.py:111",
+                  launches, max(dpose, dcost), ms, plain_ms, bnd, cluster=cluster, batch=b)
+
+
+def _duo_logs(tmp):
+    """9b's two .npz logs: each sensor from its launch file's pose, driving
+    straight on at 0.4 m/s, at its own rate."""
+    from ndtpso_slam_tpu_torch.io import synthetic
+
+    paths, logs = [], []
+    for i, (name, dt, n, heading) in enumerate(DUO):
+        ts = np.arange(n) * dt
+        traj = np.stack([0.4 * ts * np.cos(heading), 0.4 * ts * np.sin(heading),
+                         np.full_like(ts, heading)], -1)
+        lg = synthetic.make_log(seed=40 + i, n_scans=n, n_beams=360, world_size=40.0, dt=dt,
+                                trajectory=traj)
+        path = os.path.join(tmp, f"{name}.npz")
+        np.savez(path, ranges=lg.ranges, poses=lg.poses, odoms=lg.odoms, timestamps=lg.timestamps,
+                 angle_min=lg.angle_min, angle_increment=lg.angle_increment,
+                 range_max=lg.range_max)
+        paths.append(path)
+        logs.append(lg)
+    return paths, logs
+
+
+def phase_sessions_cli(dev):
+    """9b: two sensors' logs through the CLI as two sessions (a subprocess,
+    deterministic algorithms), its bundles, and each session's pose CSV
+    against a solo SlamNode of seed + 101·i in this process."""
+    import dataclasses
+
+    import torch
+
+    from ndtpso_slam_tpu_torch.node import MultiSessionNode, NodeConfig, SlamNode
+    from ndtpso_slam_tpu_torch.ops import rollout_local as rl
+
+    over = dict(cost_mode="rollout_local", max_beams=384)
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        paths, logs = _duo_logs(tmp)
+        # The CLI's main under deterministic algorithms, so that the map's
+        # scatter-adds sum in the solo node's order.
+        cmd = [sys.executable, "-c", "import sys, torch; "
+               "torch.use_deterministic_algorithms(True, warn_only=True); "
+               "from ndtpso_slam_tpu_torch.node import main; sys.exit(main(sys.argv[1:]))"]
+        for path in paths:
+            cmd += ["--scanlog", path]
+        for launch in DUO_LAUNCH:
+            cmd += ["--config", os.path.join(HERE, launch)]
+        cmd += ["--cost-mode", "rollout_local", "--max-beams", "384", "--quiet", "--device", str(dev), "--out", os.path.join(tmp, "duo")]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600,
+                             env=dict(os.environ, PYTHONPATH=HERE))
+        wall = time.perf_counter() - t0
+        check(res.returncode == 0, f"9b: the CLI exited {res.returncode}: {res.stderr[-2000:]}")
+        names = sorted(os.listdir(tmp))
+        for i in range(len(DUO)):
+            for suffix in (".pose.csv", ".map.csv", ".gnuplot", ".cells.csv"):
+                check(f"duo-s{i}{suffix}" in names, f"9b: no duo-s{i}{suffix} in {names}")
+        cfgs = [NodeConfig.from_json(os.path.join(HERE, launch), **over) for launch in DUO_LAUNCH]
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with _solves_logged(rl.pso_rollout_local) as log:
+                MultiSessionNode(cfgs, verbose=False, device=dev).run_logs(logs)
+                pool_cs = set(log["cs"])
+                solo_cs, errs = set(), []
+                for i, (cfg, lg) in enumerate(zip(cfgs, logs)):
+                    log["cs"].clear()
+                    solo = SlamNode(dataclasses.replace(cfg, seed=cfg.seed + 101 * i),
+                                    verbose=False, device=dev)
+                    solo.run_log(lg)
+                    solo.shutdown(os.path.join(tmp, f"solo{i}"))
+                    solo_cs |= set(log["cs"])
+                    errs.append(float(np.hypot(*(np.stack(solo.poses)[:, :2]
+                                                 - lg.poses[:, :2]).T).max()))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        read = lambda name: open(os.path.join(tmp, name)).read()
+        for i in range(len(DUO)):
+            got, want = read(f"duo-s{i}.pose.csv"), read(f"solo{i}.pose.csv")
+            if pool_cs == solo_cs:
+                check(got == want, f"9b: session {i}'s pose CSV differs from its solo node's "
+                      f"at equal cluster size {sorted(pool_cs)}")
+            else:
+                rows = lambda text: np.array([[float(v) for v in line.split(",")]
+                                              for line in text.strip().split("\n")[1:]])
+                diff = float(np.abs(rows(got) - rows(want)).max())
+                check(diff <= TRAJ_ATOL, f"9b: session {i} vs solo {diff:.3e}")
+                print(f"[phase 9b] session {i}: the pool launched K1 at C {sorted(pool_cs)}, "
+                      f"the solo node at C {sorted(solo_cs)}: held to {TRAJ_ATOL} ({diff:.3e})")
+    sensors = ", ".join(f"{name} {n} scans at {1 / dt:.0f} Hz" for name, dt, n, _ in DUO)
+    print(f"[phase 9b] CLI, 2 sessions ({sensors}; {' + '.join(DUO_LAUNCH)}, rollout_local, "
+          f"N=384): exit 0 in {wall:.2f} s (a fresh "
+          f"process), bundles duo-s0.* and duo-s1.* written, each pose CSV "
+          f"{'identical to' if pool_cs == solo_cs else 'within tolerance of'} its solo node's "
+          f"(K1 C {sorted(pool_cs)} in the pool, {sorted(solo_cs)} solo); max error against the "
+          f"truth {[round(e, 4) for e in errs]} m")
+
+
+def _pool_of(cfg, st, n, keys, dev):
+    """A session pool of n sessions, each a copy of solo state st."""
+    import dataclasses
+
+    from ndtpso_slam_tpu_torch.models import slam
+    from ndtpso_slam_tpu_torch.parallel.sessions import SlamSessionPool
+
+    pool = SlamSessionPool(cfg, np.tile(st.pose.cpu().numpy(), (n, 1)), keys, dev)
+    for i in range(n):
+        view = slam.session_state(pool.states, i)
+        for f in dataclasses.fields(st.map):
+            getattr(view.map, f.name).copy_(getattr(st.map, f.name))
+        slam.set_session_state(pool.states, i, st)
+    return pool
+
+
+def phase_fleet_recovery(dev, window_slots=100):
+    """9c: 7c's kidnap in a pool of 8 sessions with recovery on: one
+    accepted recovery for the kidnapped robot within 7c's gate, the other
+    robots' map rows bit-equal before and after the escalation, the event's
+    wall time and K3's launches; the same escalation at other keys
+    (reported, not gated: ROADMAP R5)."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+
+    from ndtpso_slam_tpu_torch.models import ndt_map, slam
+    from ndtpso_slam_tpu_torch.parallel import fleet, sessions
+
+    cfg, st, healthy, kidnapped, kid_pose = reloc_launch_world(dev, window_slots)
+    b = FLEET_B
+    keys = np.stack([np.full(b, 3), np.arange(9, 9 + b)], -1)
+    pool = _pool_of(cfg, st, b, keys, dev)
+    for r in range(b):
+        pool.submit(r, kidnapped if r == KIDNAP_ROBOT else healthy)
+    others = [r for r in range(b) if r != KIDNAP_ROBOT]
+    seen = {}
+    real = fleet.relocalize_fleet_robot
+
+    def escalation(states, idx, scan, key, cfg_):
+        before = {f.name: getattr(states.map, f.name)[others].clone()
+                  for f in dataclasses.fields(states.map)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(states, idx, scan, key, cfg_)
+        torch.cuda.synchronize()
+        seen.update(ms=(time.perf_counter() - t0) * 1e3, idx=idx, key=key, accepted=out[3],
+                    untouched=all(torch.equal(v, getattr(states.map, k)[others])
+                                  for k, v in before.items()))
+        return out
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    with mock.patch.object(sessions, "relocalize_fleet_robot", escalation):
+        res = pool.poll()
+    counts = _read_counts()
+    rec = pool.states.recoveries
+    check(seen.get("idx") == KIDNAP_ROBOT, f"9c: escalated {seen}, expected robot {KIDNAP_ROBOT}")
+    err = _kidnap_err(torch.as_tensor(res[KIDNAP_ROBOT][0]), kid_pose)
+    within = all(e < g for e, g in zip(err, KIDNAP_GATE))
+    check(rec[KIDNAP_ROBOT] == 1 and rec.sum() == 1 and within,
+          f"9c: recoveries {rec.tolist()}, robot {KIDNAP_ROBOT} err {err.round(4)} "
+          f"(gate {KIDNAP_GATE})")
+    check(seen["untouched"], "9c: the escalation wrote another robot's map rows")
+    evals = 2 * (cfg.recovery.pso.iterations + 2)
+    want = {n: {"rollout_local": 1, "score": evals, "row_scatter": 4}.get(n, 0) for n in counts}
+    check(counts == want, f"9c: launches {counts}, expected {want}")
+    # The escalation at other keys, on the kidnapped robot's views (the
+    # pool's state after the step), reported.
+    view = slam.session_state(pool.states, KIDNAP_ROBOT)
+    snap = ndt_map.snapshot(view.map, cfg.map)
+    sweep = []
+    for key in KIDNAP_SWEEP:
+        rpose, _ = slam._relocalize(key, snap, kidnapped, view.pose, view.pose, cfg)
+        sweep.append(all(e < g for e, g in zip(_kidnap_err(rpose, kid_pose), KIDNAP_GATE)))
+    print(f"[phase 9c] 7c's kidnap in a pool of {b} sessions (300 m / 0.5 m / {window_slots} "
+          f"slots, recovery on, rollout_local): robot {KIDNAP_ROBOT} relocalized by host "
+          f"escalation, "
+          f"recoveries {rec.tolist()}, err {err.round(4)} (gate {KIDNAP_GATE}); the other "
+          f"{len(others)} robots' map rows bit-equal before and after the escalation; "
+          f"escalation {seen['ms']:.3f} ms ({'within' if seen['ms'] < PERIOD_MS else 'OVER'} the "
+          f"{PERIOD_MS:.0f} ms period); launches {counts} (K3 "
+          f"{counts['score']}); the escalation's relocalization at {len(sweep)} other keys: "
+          f"{sum(sweep)} within the gate")
+    del pool
+
+
+def phase_fleets_sessions(dev):
+    """Phase 9: fleets and sessions.  Returns 9a's kernels-line entries."""
+    t0 = time.perf_counter()
+    entries = phase_fleet(dev)
+    phase_sessions_cli(dev)
+    phase_fleet_recovery(dev)
+    print(f"[phase 9] wall {time.perf_counter() - t0:.1f} s")
+    return list(entries)
+
+
 def main() -> int:
     import torch
 
@@ -2711,6 +3264,7 @@ def main() -> int:
     kernels.append(phase_recovery(torch.device("cuda")))
     print(f"[phase 7] wall {time.perf_counter() - t0:.1f} s")
     kernels.append(phase_whole_node(lg, world))
+    kernels.extend(phase_fleets_sessions(torch.device("cuda")))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -25,6 +25,12 @@ Two differences from the JAX package, both about memory:
   without ever touching a real cell.  :func:`snapshot` and
   ``utils/state.py`` see only the real rows.
 
+A stack of B maps (the fleet's, ``parallel/fleet.py``) has the same fields
+with a leading [B]; :func:`add_points_stacked` and
+:func:`build_touched_stacked` update it through the flat [B·(C+1), ...]
+views, and :func:`add_points` and :func:`build_touched` are their one-map
+case.
+
 Scatter-add order: on the CPU ``index_add_`` adds in index order, like XLA's
 scatter on the CPU, so the port's statistics match the JAX package bit for
 bit there (``tests/test_torch_map.py``).  On CUDA ``index_add_`` of floats
@@ -123,30 +129,64 @@ def cell_centers(cfg: MapConfig, dtype=torch.float32, device="cuda", idx=None) -
     return _centers_of(cfg, idx, dtype)
 
 
+def _stacked(state: NdtMapState) -> NdtMapState:
+    """A solo map as a stack of one: [None] views of its tensors."""
+    return NdtMapState(**{f.name: getattr(state, f.name)[None] for f in dataclasses.fields(state)})
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    """[B, M, ...] -> [B·M, ...], a view of the contiguous stack."""
+    return x.view((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
+
+
+def _bases(b: int, stride: int, device):
+    """Robot b's first flat row, b·stride, as [B, 1]; None for one map (its
+    flat ids are its own)."""
+    return None if b == 1 else torch.arange(b, device=device)[:, None] * stride
+
+
+def _at(x, base):
+    return x if base is None else x + base
+
+
 def add_points(
     state: NdtMapState, cfg: MapConfig, points: torch.Tensor, valid: torch.Tensor
 ) -> NdtMapState:
     """Scatter world-frame points [N, 2] (mask [N]) into their cells, in place
     (``NDTFrame::addPoint`` -> ``NDTCell::addPoint``, ``ndtframe.cpp:215-225``,
     ``ndtcell.cpp:21-34``): out-of-frame points are dropped, touched cells
-    are marked created and un-built."""
+    are marked created and un-built.  The one-map case of
+    :func:`add_points_stacked`."""
+    add_points_stacked(_stacked(state), cfg, points[None], valid[None])
+    return state
+
+
+def add_points_stacked(
+    state: NdtMapState, cfg: MapConfig, points: torch.Tensor, valid: torch.Tensor
+) -> NdtMapState:
+    """:func:`add_points` for a stack of B maps (fields [B, C+1, ...]), in
+    place, as one update per field over the flat [B·(C+1), ...] views: map
+    b's cell id becomes b·(C+1) + id, and its dropped points go to its own
+    spare row.  points: [B, N, 2]; valid: [B, N]."""
+    c = cfg.num_cells
     idx, inb = cell_index(
         points, size_m=cfg.size_m, cell_side_m=cfg.cell_side_m,
         cells_per_side=cfg.cells_per_side,
     )
     mask = valid & inb
-    sidx = torch.where(mask, idx, cfg.num_cells).long()  # spare row = drop
+    sidx = torch.where(mask, idx, c).long()  # spare row = drop
+    sidx = _at(sidx, _bases(sidx.shape[0], c + 1, sidx.device)).reshape(-1)
     dtype = state.cur_sum.dtype
     centred = (points - _centers_of(cfg, idx, dtype)).to(dtype)
     px, py = centred[..., 0], centred[..., 1]
     m2 = torch.stack([px * px, px * py, py * py], dim=-1)
-    state.cur_sum.index_add_(0, sidx, centred)
-    state.cur_count.index_add_(0, sidx, mask.to(torch.int32))
-    state.cur_m2.index_add_(0, sidx, m2)
+    _flat(state.cur_sum).index_add_(0, sidx, centred.reshape(-1, 2))
+    _flat(state.cur_count).index_add_(0, sidx, mask.reshape(-1).to(torch.int32))
+    _flat(state.cur_m2).index_add_(0, sidx, m2.reshape(-1, 3))
     # index_fill_ takes the value as a scalar: an indexed assignment of a
     # Python bool would copy it to the device and wait for the stream.
-    state.created.index_fill_(0, sidx, True)
-    state.built.index_fill_(0, sidx, False)
+    _flat(state.created).index_fill_(0, sidx, True)
+    _flat(state.built).index_fill_(0, sidx, False)
     return state
 
 
@@ -226,25 +266,42 @@ def _build_rows(cfg: MapConfig, rows: _CellRows) -> _CellRows:
 
 
 def _assign_ring_rows(state: NdtMapState, cfg: MapConfig, sidx: torch.Tensor) -> None:
-    """Give each distinct cell of ``sidx`` (sentinel ``num_cells``) that has
-    never been built a ring row, in place: rows ``ring_used``, ``ring_used``
-    + 1, ... in ascending cell order, as the JAX package's cumsum over its
-    [C] mark assigns them (``ndt_map.py:388-420``).  A new cell past row R
-    is marked -2 and counted once in ``ring_overflow``.  The JAX package
-    marks and sums over all C cells; here the ids are sorted and the first
-    of each run of equal ids stands for its cell, which touches O(M log M)
-    entries instead of O(C) and gives the same rows."""
-    c = cfg.num_cells
+    """Give each distinct cell of the flat ids ``sidx`` of a stack of B maps
+    (map b's ids offset by b·(C+1), its sentinel its spare row) that has
+    never been built a ring row of its own map, in place: rows
+    ``ring_used[b]``, ``ring_used[b]`` + 1, ... in ascending cell order, as
+    the JAX package's cumsum over its [C] mark assigns them
+    (``ndt_map.py:388-420``; per robot, ``parallel/fleet.py:118-148``).  A
+    new cell past row R is marked -2 and counted once in ``ring_overflow``.
+    The JAX package marks and sums over all C cells; here the ids are sorted
+    and the first of each run of equal ids stands for its cell, which
+    touches O(M log M) entries instead of O(C) and gives the same rows.  The
+    sorted ids run map by map, so the count of new cells restarts at each
+    map's segment."""
+    c, rows = cfg.num_cells, cfg.num_cells + 1
+    b = state.ring_used.shape[0]
     srt = torch.sort(sidx).values
     first = torch.ones_like(srt, dtype=torch.bool)
     first[1:] = srt[1:] != srt[:-1]
-    new = first & (srt < c) & (state.ring_map[srt] == -1)
-    assigned = state.ring_used + torch.cumsum(new.to(torch.int32), 0, dtype=torch.int32) - 1
+    robot = torch.div(srt, rows, rounding_mode="floor")
+    ring_map = _flat(state.ring_map)
+    new = first & (srt - robot * rows < c) & (ring_map[srt] == -1)
+    n_new = new.to(torch.int32)
+    per_robot = torch.zeros(b, dtype=torch.int32, device=srt.device).index_add_(0, robot, n_new)
+    before = torch.cumsum(per_robot, 0, dtype=torch.int32) - per_robot  # earlier maps' new cells
+    assigned = (state.ring_used[robot] + torch.cumsum(n_new, 0, dtype=torch.int32)
+                - before[robot] - 1)
     ok = new & (assigned < cfg.ring_rows)
-    # new marks distinct cells, so only the spare row is written twice.
-    state.ring_map[torch.where(new, srt, c)] = torch.where(ok, assigned, -2)
-    state.ring_used += ok.sum(dtype=torch.int32)
-    state.ring_overflow += (new & ~ok).sum(dtype=torch.int32)
+    # new marks distinct cells, so only spare rows are written twice.
+    ring_map[torch.where(new, srt, robot * rows + c)] = torch.where(ok, assigned, -2)
+    state.ring_used.index_add_(0, robot, ok.to(torch.int32))
+    state.ring_overflow.index_add_(0, robot, (new & ~ok).to(torch.int32))
+
+
+def _index_put(fields, idx: torch.Tensor, vals) -> None:
+    """``field[idx] = val`` for each field."""
+    for f, v in zip(fields, vals):
+        f[idx] = v
 
 
 def build_touched(
@@ -261,54 +318,75 @@ def build_touched(
 
     Sparse ring: a cell gets its ring row at its first build
     (:func:`_assign_ring_rows`); a cell without one (overflowed) is left out
-    of every write, so it never builds and scores as outside the map."""
+    of every write, so it never builds and scores as outside the map.  The
+    one-map case of :func:`build_touched_stacked`."""
+    build_touched_stacked(_stacked(state), cfg, ids[None])
+    return state
+
+
+def build_touched_stacked(
+    state: NdtMapState, cfg: MapConfig, ids: torch.Tensor, put_rows=_index_put
+) -> NdtMapState:
+    """:func:`build_touched` for a stack of B maps (fields [B, C+1, ...], a
+    sparse ring's slots [B, R+1, S, ...], ``ring_used`` [B]), in place, as
+    gathers and writes over the flat views: map b's cell id becomes
+    b·(C+1) + id (its ring row b·(R+1) + row), and its dropped ids go to its
+    own spare rows.  Per map the same ``_build_rows`` math on the same rows
+    as a build of that map alone.
+
+    ids: [B, M] map-local cell ids (>= C dropped).  ``put_rows(fields, idx,
+    vals)`` writes the float fields of one width on one id stream,
+    ``{mean_c, g_sum, cur_sum}`` and ``{inv_cov, g_cov, cur_m2}`` (indexed
+    assignment unless the caller gives another writer); the other fields
+    take indexed assignment."""
     c = cfg.num_cells
+    b, dev = ids.shape[0], ids.device
+    cells = _bases(b, c + 1, dev)
     ids = ids.long()
     sentinel = ids >= c
-    safe = torch.where(sentinel, 0, ids)
-    sidx = torch.where(sentinel, c, ids)
+    safe = _at(torch.where(sentinel, 0, ids), cells)
+    sidx = _at(torch.where(sentinel, c, ids), cells)
     if cfg.ring_rows > 0:
-        _assign_ring_rows(state, cfg, sidx)
-        rrow = state.ring_map[safe].long()
+        r = cfg.ring_rows
+        ring = _bases(b, r + 1, dev)
+        _assign_ring_rows(state, cfg, sidx.reshape(-1))
+        rrow = _flat(state.ring_map)[safe].long()  # map-local ring rows
         has_row = rrow >= 0
-        sidx = torch.where(has_row, sidx, c)
-        ring_idx = torch.where(has_row & ~sentinel, rrow, cfg.ring_rows)
-        ring_safe = torch.where(has_row, rrow, 0)
+        sidx = torch.where(has_row, sidx, _at(c, cells))
+        ring_idx = _at(torch.where(has_row & ~sentinel, rrow, r), ring)
+        ring_safe = _at(torch.where(has_row, rrow, 0), ring)
     else:
         ring_idx, ring_safe = sidx, safe
-    slot = state.slot_idx[safe].long()
-    rows = _CellRows(
-        mean_c=state.mean_c[safe],
-        inv_cov=state.inv_cov[safe],
-        built=state.built[safe],
-        g_sum=state.g_sum[safe],
-        g_count=state.g_count[safe],
-        g_cov=state.g_cov[safe],
-        old_sum=state.slot_sum[ring_safe, slot],
-        old_count=state.slot_count[ring_safe, slot],
-        old_cov=state.slot_cov[ring_safe, slot],
-        slot_idx=state.slot_idx[safe],
-        rot_count=state.rot_count[safe],
-        cur_sum=state.cur_sum[safe],
-        cur_count=state.cur_count[safe],
-        cur_m2=state.cur_m2[safe],
-    )
-    new = _build_rows(cfg, rows)
-    state.mean_c[sidx] = new.mean_c
-    state.inv_cov[sidx] = new.inv_cov
-    state.built[sidx] = new.built
-    state.g_sum[sidx] = new.g_sum
-    state.g_count[sidx] = new.g_count
-    state.g_cov[sidx] = new.g_cov
+    safe, sidx, ring_idx, ring_safe = (x.reshape(-1) for x in (safe, sidx, ring_idx, ring_safe))
+    f = {name: _flat(getattr(state, name)) for name in (
+        "mean_c", "inv_cov", "built", "g_sum", "g_count", "g_cov", "slot_sum", "slot_count",
+        "slot_cov", "slot_idx", "rot_count", "cur_sum", "cur_count", "cur_m2")}
+    slot = f["slot_idx"][safe].long()
+    new = _build_rows(cfg, _CellRows(
+        mean_c=f["mean_c"][safe],
+        inv_cov=f["inv_cov"][safe],
+        built=f["built"][safe],
+        g_sum=f["g_sum"][safe],
+        g_count=f["g_count"][safe],
+        g_cov=f["g_cov"][safe],
+        old_sum=f["slot_sum"][ring_safe, slot],
+        old_count=f["slot_count"][ring_safe, slot],
+        old_cov=f["slot_cov"][ring_safe, slot],
+        slot_idx=f["slot_idx"][safe],
+        rot_count=f["rot_count"][safe],
+        cur_sum=f["cur_sum"][safe],
+        cur_count=f["cur_count"][safe],
+        cur_m2=f["cur_m2"][safe],
+    ))
+    put_rows([f["mean_c"], f["g_sum"], f["cur_sum"]], sidx, [new.mean_c, new.g_sum, new.cur_sum])
+    put_rows([f["inv_cov"], f["g_cov"], f["cur_m2"]], sidx,
+             [new.inv_cov, new.g_cov, new.cur_m2])
+    for name in ("built", "g_count", "slot_idx", "rot_count", "cur_count"):
+        f[name][sidx] = getattr(new, name)
     # The slot write targets the pre-rotation slot, as the dense pass does.
-    state.slot_sum[ring_idx, slot] = new.old_sum
-    state.slot_count[ring_idx, slot] = new.old_count
-    state.slot_cov[ring_idx, slot] = new.old_cov
-    state.slot_idx[sidx] = new.slot_idx
-    state.rot_count[sidx] = new.rot_count
-    state.cur_sum[sidx] = new.cur_sum
-    state.cur_count[sidx] = new.cur_count
-    state.cur_m2[sidx] = new.cur_m2
+    f["slot_sum"][ring_idx, slot] = new.old_sum
+    f["slot_count"][ring_idx, slot] = new.old_count
+    f["slot_cov"][ring_idx, slot] = new.old_cov
     return state
 
 

@@ -32,6 +32,12 @@ Differences from the JAX package, none of which changes a result:
   0-d tracking-loss flag on the host (one synchronization), and on that
   branch the accept decision; with recovery off it adds none.  The number of
   accepted relocalizations, ``SlamState.recoveries``, is a Python int.
+
+Several sessions are one SlamState stacked on a leading robot axis
+(:func:`init_slam_batch`), whose host counters are numpy arrays;
+:func:`session_state` views one session as a solo state and
+:func:`run_offline_batch` runs each session's log through the solo step on
+those views.  The flat fleet (``parallel/fleet.py``) steps them together.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ndtpso_slam_tpu_torch.config import RECOVERY_AUTO_STRIDE_MIN_CELLS, SlamConfig, resolve_device
@@ -433,3 +440,101 @@ def run_offline(
         poses.append(pose)
         costs.append(c)
     return state, torch.stack(poses), torch.stack(costs)
+
+
+# ------------------------------------------------------------ session stacks
+#
+# B independent sessions (one node per LiDAR, ``launch/lidar_front.launch``
+# and ``lidar_back.launch``) as ONE SlamState whose fields carry a leading
+# robot axis: map fields [B, C+1, ...] (every robot keeps its own spare row),
+# ``pose`` and the align poses [B, 3], ``fitness`` [B], ``prev_ids`` [B, N],
+# the occupancy raster [B, H, W] or None.  ``step``, ``align.iter`` and
+# ``recoveries`` are host numpy int64 arrays [B], as the solo state keeps
+# them as Python ints: first-scan, cold-start and activity tests stay host
+# masks.
+
+
+def init_slam_batch(cfg: SlamConfig, initial_poses, device="cuda") -> SlamState:
+    """B fresh session states stacked on a leading robot axis (JAX
+    ``models/slam.py:init_slam_batch``).  initial_poses: [B, 3]."""
+    dev = resolve_device(device)
+    # A copy: the stack is updated in place, never the caller's array.
+    poses = torch.tensor(np.asarray(initial_poses), dtype=cfg.dtype).reshape(-1, 3).to(dev)
+    b = poses.shape[0]
+    one = init_slam(cfg, (0.0, 0.0, 0.0), dev)
+    stack = lambda t: t[None].expand((b,) + tuple(t.shape)).clone()
+    og = None
+    if one.og is not None:
+        h, w = one.og.og.shape
+        buf = stack(one.og.buf)
+        og = occupancy.OccupancyGrid(
+            og=buf[:, : h * w].view(b, h, w), buf=buf,
+            **{k: stack(getattr(one.og, k)) for k in ("min_x", "max_x", "min_y", "max_y")})
+    zeros = lambda: np.zeros(b, np.int64)
+    return SlamState(
+        map=ndt_map.NdtMapState(**{f.name: stack(getattr(one.map, f.name))
+                                   for f in dataclasses.fields(ndt_map.NdtMapState)}),
+        align=AlignState(prev_pose=poses.clone(), pose_diff=stack(one.align.pose_diff),
+                         iter=zeros()),
+        og=og, pose=poses, step=zeros(), fitness=stack(one.fitness), recoveries=zeros(),
+        prev_ids=stack(one.prev_ids),
+    )
+
+
+def session_state(states: SlamState, i: int) -> SlamState:
+    """Session ``i`` of a stacked state as a solo SlamState whose tensors are
+    views into the stack.  The map is updated in place, so a solo
+    ``slam_step`` on it writes robot i's map through to the stack; the
+    fields the step rebinds go back with :func:`set_session_state`."""
+    og = states.og
+    if og is not None:
+        og = occupancy.OccupancyGrid(og=og.og[i], buf=og.buf[i], min_x=og.min_x[i],
+                                     max_x=og.max_x[i], min_y=og.min_y[i], max_y=og.max_y[i])
+    return SlamState(
+        map=ndt_map.NdtMapState(**{f.name: getattr(states.map, f.name)[i]
+                                   for f in dataclasses.fields(ndt_map.NdtMapState)}),
+        align=AlignState(prev_pose=states.align.prev_pose[i],
+                         pose_diff=states.align.pose_diff[i], iter=int(states.align.iter[i])),
+        og=og, pose=states.pose[i], step=int(states.step[i]), fitness=states.fitness[i],
+        recoveries=int(states.recoveries[i]), prev_ids=states.prev_ids[i],
+    )
+
+
+def set_session_state(states: SlamState, i: int, state: SlamState) -> None:
+    """Write solo state ``state`` (a step's result on :func:`session_state`'s
+    views) into session ``i`` of the stack: the fields a step rebinds (the
+    map is already there, written in place through the views)."""
+    states.pose[i] = state.pose
+    states.fitness[i] = state.fitness
+    states.prev_ids[i] = state.prev_ids
+    states.align.prev_pose[i] = state.align.prev_pose
+    states.align.pose_diff[i] = state.align.pose_diff
+    states.align.iter[i] = state.align.iter
+    states.step[i] = state.step
+    states.recoveries[i] = state.recoveries
+    if states.og is not None:
+        for k in ("min_x", "max_x", "min_y", "max_y"):
+            getattr(states.og, k)[i] = getattr(state.og, k)
+
+
+def run_offline_batch(
+    states: SlamState, scans: Scan, base_keys, cfg: SlamConfig
+) -> Tuple[SlamState, torch.Tensor, torch.Tensor]:
+    """B independent SLAM sessions over recorded logs (JAX
+    ``models/slam.py:run_offline_batch``, a ``vmap`` of ``run_offline``):
+    :func:`run_offline` on each session's views in turn, so every option of
+    the solo step runs, the occupancy raster and recovery included.
+
+    states: :func:`init_slam_batch`'s stack, updated in place and returned;
+    scans: [B, T, ...]; base_keys: [B, 2] u32 words.  Returns (states,
+    poses [B, T, 3], costs [B, T])."""
+    keys = np.asarray(base_keys, np.int64).reshape(-1, 2)
+    poses, costs = [], []
+    for i in range(keys.shape[0]):
+        st, p, c = run_offline(session_state(states, i),
+                               Scan(points=scans.points[i], valid=scans.valid[i]),
+                               (int(keys[i, 0]), int(keys[i, 1])), cfg)
+        set_session_state(states, i, st)
+        poses.append(p)
+        costs.append(c)
+    return states, torch.stack(poses), torch.stack(costs)

@@ -14,14 +14,23 @@ GLIR-PSO optimizer on the plain cost modes, the occupancy raster
 (``--og``), tracking-loss recovery (``--recovery``), a sparse ring
 (``ring_rows``, with a warning when it overflows), the stencil patch
 (``patch_range_m``) and frontal-point decimation
-(``--prefer-frontal-points``).  Several sessions in one process (the JAX
-package's ``MultiSessionNode``, a repeated ``--scanlog``) are not ported
-(ROADMAP D1).
+(``--prefer-frontal-points``).  :class:`MultiSessionNode` runs several
+sessions in one process, the reference's one-node-per-LiDAR deployment
+(``launch/lidar_front.launch`` + ``lidar_back.launch``) through
+``parallel/sessions.py:SlamSessionPool``: the CLI takes a repeated
+``--scanlog`` (and one ``--config`` per log, or one for all).
 
 Run over a log on the GPU::
 
     python -m ndtpso_slam_tpu_torch.node --scanlog run.bag --out run \\
         --cost-mode rollout_local --checkpoint run-state.npz
+
+and over two sensors' logs as two sessions (bundles ``duo-s0.*``,
+``duo-s1.*``)::
+
+    python -m ndtpso_slam_tpu_torch.node --scanlog front.npz --scanlog back.npz \\
+        --config launch/lidar_front.json --config launch/lidar_back.json \\
+        --cost-mode rollout_local --max-beams 384 --out duo
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from ndtpso_slam_tpu_torch.models import scan as scan_mod
 from ndtpso_slam_tpu_torch.models import slam
 from ndtpso_slam_tpu_torch.models.pso import OPTIMIZERS
 from ndtpso_slam_tpu_torch.ops import rng
+from ndtpso_slam_tpu_torch.parallel.sessions import SlamSessionPool
 from ndtpso_slam_tpu_torch.utils import checkpoint, profiling
 from ndtpso_slam_tpu_torch.utils import export as export_mod
 
@@ -124,8 +134,12 @@ class NodeConfig:
 
     @staticmethod
     def from_json(path: str, **overrides) -> "NodeConfig":
+        """A config from a launch JSON (see ``launch/``) and overrides; keys
+        beginning with ``_`` are comments (the launch files' ``_comment``,
+        which the JAX package's reader refuses, ROADMAP R8), any other
+        unknown key raises ValueError."""
         with open(path) as f:
-            data = json.load(f)
+            data = {k: v for k, v in json.load(f).items() if not k.startswith("_")}
         data.update({k: v for k, v in overrides.items() if v is not None})
         fields = {f.name for f in dataclasses.fields(NodeConfig)}
         unknown = set(data) - fields
@@ -135,6 +149,18 @@ class NodeConfig:
             if key in data:
                 data[key] = tuple(data[key])
         return NodeConfig(**data)
+
+
+def _seed_key(seed: int):
+    """A session's base key (k0, k1) from its node seed."""
+    return seed & 0xFFFFFFFF, (seed ^ 0x9E3779B9) & 0xFFFFFFFF
+
+
+def _mount_of(node_cfg: NodeConfig):
+    """The latched base<-scan transform [3] to apply at scan load, or None."""
+    if any(abs(v) > 1e-9 for v in node_cfg.mount_trans):
+        return np.asarray(node_cfg.mount_trans, np.float32)
+    return None
 
 
 class SlamNode:
@@ -150,12 +176,8 @@ class SlamNode:
         self.meter = profiling.RateMeter()
         self.pose_callbacks: List[Callable] = []
         self.verbose = verbose
-        self._key = (node_cfg.seed & 0xFFFFFFFF, (node_cfg.seed ^ 0x9E3779B9) & 0xFFFFFFFF)
-        self._mount = (
-            np.asarray(node_cfg.mount_trans, np.float32)
-            if any(abs(v) > 1e-9 for v in node_cfg.mount_trans)
-            else None
-        )
+        self._key = _seed_key(node_cfg.seed)
+        self._mount = _mount_of(node_cfg)
         self._warned_ring_overflow = False
 
     @property
@@ -273,17 +295,133 @@ class SlamNode:
         self.state = checkpoint.restore(path, self.state, self.slam_cfg)
 
 
+class MultiSessionNode:
+    """N concurrent SLAM sessions on one GPU: the reference's dual-LiDAR
+    deployment (one OS process per sensor, ``launch/lidar_front.launch`` +
+    ``lidar_back.launch``) as one process (JAX ``node.py:MultiSessionNode``).
+
+    The sessions share one ``SlamConfig`` (their node configs must give
+    equal ones); each session's start pose and mount transform come from its
+    own ``NodeConfig``, and its key from ``seed + 101·i``, so session i
+    replays a solo :class:`SlamNode` of seed ``seed + 101·i`` on its log.
+    Scans go through ``parallel/sessions.py:SlamSessionPool``, so sensors at
+    different rates interleave freely."""
+
+    def __init__(self, node_cfgs: List[NodeConfig], verbose: bool = True, device="cuda"):
+        if not node_cfgs:
+            raise ValueError("need at least one session config")
+        ref = node_cfgs[0].slam_config()
+        if any(c.slam_config() != ref for c in node_cfgs[1:]):
+            raise ValueError(
+                "multi-session mode needs shape-identical SLAM configs (the sessions "
+                "share one config); per-session init_pose / mount_trans may differ"
+            )
+        slam.validate_config(ref)
+        self.cfgs = node_cfgs
+        self.slam_cfg = ref
+        self.verbose = verbose
+        self.device = cfgm.resolve_device(device)
+        n = len(node_cfgs)
+        seeds = [c.seed + 101 * i for i, c in enumerate(node_cfgs)]
+        keys = np.array([_seed_key(s) for s in seeds], np.int64)
+        self.pool = SlamSessionPool(ref, np.stack([np.float32(c.init_pose) for c in node_cfgs]),
+                                    keys, self.device)
+        self._mounts = [_mount_of(c) for c in node_cfgs]
+        self.global_maps = [export_mod.GlobalMap(keep_every=c.save_every) for c in node_cfgs]
+        self._pending_meta: List[List] = [[] for _ in range(n)]
+        self._steps = np.zeros(n, np.int64)
+
+    def submit_scan(self, session: int, ranges, angle_min, angle_increment, range_max,
+                    timestamp: float = 0.0, odom=None) -> None:
+        sc = scan_mod.load_laser(
+            np.asarray(ranges, np.float32), angle_min, angle_increment, range_max,
+            self.slam_cfg.scan, self.slam_cfg.map, mount=self._mounts[session],
+            device=self.device,
+        )
+        self.pool.submit(session, sc)
+        self._pending_meta[session].append((timestamp, odom, sc))
+
+    def poll(self):
+        """One pooled step; returns {session: (timestamp, pose [3])}."""
+        out = {}
+        for sid, (pose, _cost) in self.pool.poll().items():
+            ts, odom, sc = self._pending_meta[sid].pop(0)
+            pose64 = np.asarray(pose, np.float64)
+            self.global_maps[sid].add_scan(sc.points, sc.valid, pose64)
+            self.global_maps[sid].add_pose(ts, pose64, odom)
+            self._steps[sid] += 1
+            out[sid] = (ts, pose64)
+            if self.verbose:
+                print(f"[ndtpso s{sid}] scan {self._steps[sid]}: pose "
+                      f"({pose64[0]:.3f}, {pose64[1]:.3f}, {pose64[2]:.3f})", file=sys.stderr)
+        return out
+
+    def run_logs(self, logs) -> List[np.ndarray]:
+        """Interleave N ScanLogs by timestamp (each sensor at its own rate)
+        and run them to the end: scans with equal timestamps go in one poll.
+        Returns per-session [T_i, 3] pose arrays."""
+        n = len(logs)
+        assert n == len(self.cfgs)
+        events = sorted(
+            (float(lg.timestamps[i]), s, i) for s, lg in enumerate(logs)
+            for i in range(len(lg.ranges))
+        )
+        poses: List[List[np.ndarray]] = [[] for _ in range(n)]
+
+        def drain_poll():
+            for sid, (_ts, pose) in self.poll().items():
+                poses[sid].append(pose)
+
+        last_ts = None
+        for ts, s, i in events:
+            if last_ts is not None and ts != last_ts:
+                drain_poll()
+            lg = logs[s]
+            self.submit_scan(s, lg.ranges[i], lg.angle_min, lg.angle_increment, lg.range_max,
+                             timestamp=ts, odom=lg.odoms[i] if lg.odoms is not None else None)
+            last_ts = ts
+        while self.pool.pending():
+            drain_poll()
+        return [np.array(p) for p in poses]
+
+    def shutdown(self, basename: Optional[str] = None) -> List[str]:
+        """Per-session export bundles ``<basename>-s<i>.*``; returns the
+        files written."""
+        if basename is None:
+            basename = "ndtpso-" + time.strftime("%Y%m%d-%H%M%S")
+        files: List[str] = []
+        for sid, cfg in enumerate(self.cfgs):
+            st = self.pool.session_state(sid)
+            og = og_bbox = None
+            if st.og is not None:
+                og = st.og.og.cpu().numpy()
+                og_bbox = tuple(int(getattr(st.og, k))
+                                for k in ("min_x", "max_x", "min_y", "max_y"))
+            files += export_mod.dump_map(
+                f"{basename}-s{sid}", global_map=self.global_maps[sid], save_poses=True,
+                save_points=True, save_image=cfg.save_map_images, map_cfg=self.slam_cfg.map,
+                pso_cfg=self.slam_cfg.pso, og=og, og_bbox=og_bbox, og_cfg=self.slam_cfg.og,
+                map_state=st.map,
+            )
+        return files
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description="ndtpso SLAM node (PyTorch port): run SLAM over a recorded scan log"
+        description="ndtpso SLAM node (PyTorch port): run SLAM over recorded scan logs"
     )
     ap.add_argument("--scanlog", required=True, action="append",
-                    help=".bag, .csv, .npz or .ndtlog scan log (one: several logs as "
-                    "concurrent sessions are not ported, ROADMAP D1)")
-    ap.add_argument("--config", help="launch JSON (see launch/)")
+                    help=".bag, .csv, .npz or .ndtlog scan log; repeat the flag to run "
+                    "several sensors' logs as concurrent sessions (the reference's "
+                    "lidar_front + lidar_back deployment in one process)")
+    ap.add_argument("--config", action="append",
+                    help="launch JSON (see launch/); with several --scanlog, one shared "
+                    "config or one per log (shapes must match; init_pose / mount_trans "
+                    "may differ)")
     ap.add_argument("--out", default=None, help="export basename")
-    ap.add_argument("--checkpoint", help="save the final SLAM state here (.npz)")
-    ap.add_argument("--resume", help="restore the SLAM state saved by --checkpoint first")
+    ap.add_argument("--checkpoint", help="save the final SLAM state here (.npz; one session)")
+    ap.add_argument("--resume", help="restore the SLAM state saved by --checkpoint first "
+                    "(one session)")
     ap.add_argument("--cost-mode", choices=list(slam.SLAM_COST_MODES), default=None,
                     help="exact | fast | fast_local | local_exact | rollout* (rollout "
                     "modes need --max-beams as a multiple of 128)")
@@ -309,11 +447,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=cfgm.DEFAULT_DEVICE,
                     help="torch device (default cuda; cpu runs the plain path)")
     args = ap.parse_args(argv)
-    if len(args.scanlog) > 1:
-        raise NotImplementedError(
-            "several --scanlog as concurrent sessions (the JAX package's "
-            "MultiSessionNode) are not ported yet (ROADMAP D1)"
-        )
 
     overrides = dict(
         cost_mode=args.cost_mode,
@@ -330,17 +463,42 @@ def main(argv=None) -> int:
                         (args.save_images, "save_map_images")):
         if flag:
             overrides[field] = True
-    if args.config:
-        node_cfg = NodeConfig.from_json(args.config, **overrides)
-    else:
-        node_cfg = dataclasses.replace(
+
+    def build_cfg(path):
+        if path:
+            return NodeConfig.from_json(path, **overrides)
+        return dataclasses.replace(
             NodeConfig(), **{k: v for k, v in overrides.items() if v is not None}
         )
 
     from ndtpso_slam_tpu_torch.io.importers import load_log
 
+    configs = args.config or [None]
+    if len(args.scanlog) > 1:
+        # Several sensors' logs as concurrent sessions of one pool.
+        if args.resume or args.checkpoint:
+            ap.error("--resume/--checkpoint are single-session only")
+        if len(configs) == 1:
+            configs = configs * len(args.scanlog)
+        if len(configs) != len(args.scanlog):
+            ap.error("--config count must be 1 or match the --scanlog count")
+        logs = [load_log(p) for p in args.scanlog]
+        mnode = MultiSessionNode([build_cfg(c) for c in configs], verbose=not args.quiet,
+                                 device=args.device)
+        t0 = time.time()
+        poses = mnode.run_logs(logs)
+        dt = time.time() - t0
+        total = sum(len(p) for p in poses)
+        print(f"[ndtpso] processed {total} scans over {len(logs)} sessions in {dt:.2f}s "
+              f"({total / dt:.2f} Hz aggregate)", file=sys.stderr)
+        for f in mnode.shutdown(args.out):
+            print(f"[ndtpso] wrote {f}", file=sys.stderr)
+        return 0
+    if len(configs) != 1:
+        ap.error("one --scanlog takes at most one --config")
+
     log = load_log(args.scanlog[0])
-    node = SlamNode(node_cfg, verbose=not args.quiet, device=args.device)
+    node = SlamNode(build_cfg(configs[0]), verbose=not args.quiet, device=args.device)
     if args.resume:
         node.load_checkpoint(args.resume)
         print(f"[ndtpso] resumed from {args.resume}", file=sys.stderr)

@@ -10,6 +10,12 @@ C per cell, and the ring's slot arrays C rows (dense) or ``ring_rows`` (a
 sparse ring, whose ``map.ring_map`` has C entries); the port's spare scatter
 row (see ``models/ndt_map.py``) is added on the way in and dropped on the
 way out.
+
+A stacked fleet state (``models/slam.py:init_slam_batch``) goes under the
+same paths with a leading [B] axis (:func:`fleet_state_to_numpy`,
+:func:`fleet_state_from_numpy`), as the JAX package's ``init_slam_batch``
+stacks its leaves, so a JAX fleet state can continue in the port's fleet
+and the reverse.
 """
 
 from __future__ import annotations
@@ -22,7 +28,13 @@ import torch
 
 from ndtpso_slam_tpu_torch.config import SlamConfig, resolve_device
 from ndtpso_slam_tpu_torch.models import ndt_map, occupancy
-from ndtpso_slam_tpu_torch.models.slam import AlignState, SlamState
+from ndtpso_slam_tpu_torch.models.slam import (
+    AlignState,
+    SlamState,
+    init_slam_batch,
+    session_state,
+    set_session_state,
+)
 
 _SLOTS = ("slot_sum", "slot_count", "slot_cov")
 _OG_BOUNDS = ("min_x", "max_x", "min_y", "max_y")
@@ -131,3 +143,28 @@ def slam_state_from_numpy(
         recoveries=int(arrays["recoveries"]),
         prev_ids=t("prev_ids").to(torch.int32),
     )
+
+
+def fleet_state_to_numpy(states: SlamState) -> Dict[str, np.ndarray]:
+    """A stacked state as {JAX field path: numpy array [B, ...]}: each
+    session's :func:`slam_state_to_numpy`, stacked."""
+    per = [slam_state_to_numpy(session_state(states, i)) for i in range(states.pose.shape[0])]
+    return {k: np.stack([p[k] for p in per]) for k in per[0]}
+
+
+def fleet_state_from_numpy(
+    arrays: Dict[str, np.ndarray], cfg: SlamConfig, device="cuda"
+) -> SlamState:
+    """Build a stacked port state on ``device`` from {JAX field path: array
+    [B, ...]}, each session checked as :func:`slam_state_from_numpy` checks
+    a solo state."""
+    states = init_slam_batch(cfg, np.asarray(arrays["pose"]), device)
+    for i in range(states.pose.shape[0]):
+        one = slam_state_from_numpy({k: np.asarray(v)[i] for k, v in arrays.items()}, cfg, device)
+        view = session_state(states, i)
+        for f in dataclasses.fields(ndt_map.NdtMapState):
+            getattr(view.map, f.name).copy_(getattr(one.map, f.name))
+        if one.og is not None:
+            view.og.buf.copy_(one.og.buf)
+        set_session_state(states, i, one)
+    return states

@@ -210,8 +210,8 @@ def test_cli_checkpoint_resume_on_a_bag(log, tmp_path):
     """The CLI end to end on .bag logs: the log as two halves, the second
     resumed from the first's --checkpoint: the resumed half's pose rows
     equal those of one uninterrupted node over the whole log, written by
-    its own shutdown; the bundle is written; a repeated --scanlog is
-    refused, naming ROADMAP D1."""
+    its own shutdown; the bundle is written; --checkpoint with a repeated
+    --scanlog (several sessions) is refused: checkpoints are single-session."""
     from ndtpso_slam_tpu_torch.io.importers import load_log
     from ndtpso_slam_tpu_torch.io.rosbag import write_bag
 
@@ -231,8 +231,9 @@ def test_cli_checkpoint_resume_on_a_bag(log, tmp_path):
     np.testing.assert_array_equal(np.concatenate([first, rest]), rows)
     for suffix in (".map.csv", ".gnuplot", ".cells.csv"):
         assert os.path.getsize(tmp_path / f"b{suffix}") > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP D1"):
-        main(["--scanlog", "x.bag", "--scanlog", "y.bag", "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        main(["--scanlog", "x.bag", "--scanlog", "y.bag", "--checkpoint", "z.npz",
+              "--device", "cpu"])
 
 
 def test_node_config_json_and_launch_files(tmp_path):
