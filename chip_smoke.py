@@ -174,6 +174,36 @@ their kernels-line entries carry the C each ran with (`cluster`).
       44 times, row_scatter 4), the event's wall time against the 100 ms
       period, the escalation at 7c's other keys reported.
 
+10. Multi-device and multi-process (parallel/runtime.py, distributed.py,
+    the sharded entry points of mesh.py, multi_swarm.py and fleet.py), as
+    two ranks of this script (``chip_smoke.py --rank DIR``, NDTPSO_*
+    variables) over gloo on the one card (NCCL refuses two ranks on one
+    GPU), laid out as 2 hosts x 1 chip, each waiting on its own timeout;
+    read two-rank rates as the multi-process path's overhead, not scaling:
+    a. the sharded solver at 5b's width (B=256 as 2 x 128) in rollout (K2),
+       rollout_local_turbo (K1) and fast_fused (K3): the gathered rows
+       against one process's solve_batch (bit-equal where the kernel ran at
+       one cluster size both ways, else 5a's tolerances, the reason
+       printed), the launches, each rank's kernel against its plain version
+       on its first rows and timed alone on the card, per-rank wall time;
+    b. the same at world 1 over NCCL in this process, bit-equal;
+    c. 7a's relocalization as 2 x 1: multi_swarm_solve (K3) with a merge
+       within a rank every 2 iterations and across ranks every 4
+       (__graft_entry__.py:163-171), bit-equal to all K swarms in one
+       process at that cadence, and multi_swarm_rollout (K2) with the exact
+       winners gathered over ranks, against the one-process call;
+    d. the exact map merge at scan.launch scale (300 m, 0.5 m, 100 slots),
+       phase 4's 50-scan log at its true poses, each rank ingesting half of
+       each scan: integer fields and flags bit-equal to one process
+       ingesting everything, cur_sum within 1e-4 and g_sum within 1e-5,
+       every rank's map bit-equal (checksums), the bytes and time of each
+       merge;
+    e. 9a's 8-robot fleet through run_offline_fleet_sharded, 4 robots per
+       rank (K1 at B=4, E4 on each rank's flat build, each held to its
+       plain version): each robot against the unsharded fleet under the
+       cluster rule, phase 4's gate per robot;
+    and each collective's calls by backend and the device of its tensors.
+
 Each kernel's entry in the kernels line carries its bound: the larger of
 the bytes its function must move over the HBM rate and its operations
 over the peak rate of the pipe they need (below).
@@ -3214,6 +3244,698 @@ def phase_fleets_sessions(dev):
     return list(entries)
 
 
+# ---------------------------------------------------------------- phase 10
+
+# Phase 10: the runtime over ranks (parallel/runtime.py), as subprocesses
+# of this script on the one card: DIST_RANKS ranks over gloo (NCCL refuses
+# two ranks on one GPU), each on cuda:0, laid out as DIST_RANKS hosts x 1
+# chip.  Each rank waits on its own timeout.
+DIST_RANKS = 2
+RANK_TIMEOUT_S = 400
+# 10a: (cost mode, kernel library, kernel) at phase 5b's width; each rank's
+# kernel is held to its plain version on its first DIST_CHECK_ROWS rows.
+DIST_MODES = (("rollout", "rollout", "K2"), ("rollout_local_turbo", "rollout_local", "K1 turbo"),
+              ("fast_fused", "score", "K3"))
+DIST_CHECK_ROWS = 4
+# 10c: __graft_entry__.py:163-171's cadence: a merge within a host every 2
+# iterations, across hosts every 4.
+DIST_EXCHANGE = (2, 4)
+
+
+def _smi():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+
+
+def _in_turn(mesh, fn):
+    """fn() run by each rank in turn while the others wait at a barrier
+    (gloo: on the host), so that a rank times its kernels on a card no other
+    rank uses.  Returns this rank's result."""
+    import torch
+    import torch.distributed as dist
+
+    out = None
+    for r in range(mesh.size):
+        dist.barrier()
+        if r == mesh.rank:
+            out = fn()
+            torch.cuda.synchronize()
+    dist.barrier()
+    return out
+
+
+def _rank_world(x, dev):
+    """The parent's batch world, on this rank's device."""
+    from ndtpso_slam_tpu_torch.models.ndt_map import MapSnapshot
+
+    keys, guesses, devs, snaps, points, valid = x["batch_args"]
+    snaps = MapSnapshot(*(t.to(dev) for t in snaps))
+    return dict(x["batch"], args=(keys.to(dev), guesses.to(dev), devs.to(dev), snaps,
+                                  points.to(dev), valid.to(dev)))
+
+
+def _rank_solves(mesh, x):
+    """10a on one rank: the hierarchy's sharded solver on the rank's rows
+    in each mode, its launches, wall time and kernel against the plain
+    version (first DIST_CHECK_ROWS rows, in the launch's cluster order;
+    K3 over every row), timed in turn."""
+    import torch
+    import torch.distributed as dist
+
+    from ndtpso_slam_tpu_torch.ops import rollout as ro
+    from ndtpso_slam_tpu_torch.ops import rollout_local as rl
+    from ndtpso_slam_tpu_torch.ops import score as sc
+    from ndtpso_slam_tpu_torch.parallel import runtime
+
+    world = _rank_world(x, mesh.device)
+    mine = dict(world, true=runtime.shard_rows(mesh, world["true"]),
+                args=runtime.shard_rows(mesh, world["args"]))
+    b = mine["true"].shape[0]
+    cfg, mc = mine["pso_cfg"], mine["map_cfg"]
+    out = {}
+    for mode, kname, label in DIST_MODES:
+        solver = runtime.make_hier_solver(mesh, mc, cfg, mode)
+        solver(*mine["args"])  # warm: the first call also loads and queries
+        dist.barrier()
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = solver(*mine["args"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        want = _expected_launches(mode, cfg.iterations)
+        check(all(counts[k] == want.get(k, 0) for k in counts),
+              f"10a rank {mesh.rank} {mode}: launches {counts}, expected {want}")
+        gathered = runtime.gather_global(mesh, tuple(res))
+        if kname == "score":
+            cluster = None
+            ops = _score_inputs(mine, b)
+            err = _check_score(ops, f"10a rank {mesh.rank}", f"B={b} N=384 P={cfg.population}")
+            kern = lambda: sc.fused_bound_scores(*ops)
+            plain = lambda: sc.fused_bound_scores_reference(*ops)
+            bnd, plain_rows = _score_bound(ops), b
+        else:
+            local = kname == "rollout_local"
+            lib = rl.pso_rollout_local if local else ro.pso_rollout
+            cluster = lib.LAST_CLUSTER
+            packed = _packed(mine, local)
+            few = tuple(t[:DIST_CHECK_ROWS] for t in packed[:5]) + packed[5:]
+            plain_fn = rl.pso_rollout_local_reference if local else ro.pso_rollout_reference
+            kern = lambda: lib(*packed, rng_mode="native" if "turbo" in mode else "threefry")
+            plain = lambda: plain_fn(*few, rng_mode="native" if "turbo" in mode else "threefry",
+                                     cluster=cluster or 1)
+            got = tuple(t[:DIST_CHECK_ROWS] for t in kern())
+            tol = _TOLERANCES["rollout_local_turbo" if local else "rollout"]
+            err = max(_compare(f"10a rank {mesh.rank} {label}", got, plain(), *tol))
+            bound_of = _rollout_local_bound if local else _rollout_bound
+            bnd = bound_of(packed[3], packed[4], cfg.population, [cfg.iterations] * b)
+            plain_rows = DIST_CHECK_ROWS
+        ms, plain_ms = _in_turn(mesh, lambda: (_events_ms(kern, 3), _events_ms(plain, 1)))
+        print(f"[phase 10a] rank {mesh.rank}: {mode} on rows {mesh.rank * b}-{(mesh.rank + 1) * b - 1}"
+              f" (B={b}): wall {wall:.3f} s with {mesh.size - 1} other rank(s) on the card; "
+              f"launches {counts}; {label} vs plain ({plain_rows} rows, cluster {cluster}) max abs "
+              f"err {err:.3e}; {label} {ms:.4f} ms alone on the card, plain {plain_ms:.3f} ms, "
+              f"bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+        out[mode] = dict(pose=res.pose.cpu(), cost=res.cost.cpu(),
+                         gathered=tuple(t.cpu() for t in gathered), counts=counts, wall=wall,
+                         cluster=cluster, err=err, ms=ms, plain_ms=plain_ms, plain_rows=plain_rows,
+                         bnd=bnd, launches=counts[kname])
+    return out
+
+
+def _reloc_cost(w):
+    """7a's multi_swarm_solve cost: the matmul binder through K3."""
+    from ndtpso_slam_tpu_torch.models import cost
+
+    tbl = cost.snapshot_table(w["snap"])
+    return lambda poses, binds: cost.bound_cost_fused(
+        poses, cost.bind_points_matmul(binds, tbl, w["points"], w["valid"], w["map_cfg"]))
+
+
+def _rank_swarms(mesh, x):
+    """10c on one rank: its K / ranks swarms of 7a's workload through
+    multi_swarm_solve (two-tier exchange) and multi_swarm_rollout (axis
+    over every rank); then K2 on the rank's B = K / ranks inputs (7a's
+    packing, checked to give the path's poses) against its plain version
+    (first DIST_CHECK_ROWS rows, at the launch's cluster size), timed in
+    turn."""
+    from unittest import mock
+
+    import torch
+
+    from ndtpso_slam_tpu_torch.ops import rollout as ro
+    from ndtpso_slam_tpu_torch.parallel import multi_swarm as ms
+    from ndtpso_slam_tpu_torch.parallel import runtime
+
+    dev = mesh.device
+    w = dict(x["reloc"], **{k: x["reloc"][k].to(dev) for k in ("points", "valid", "keys", "hypo")})
+    w["snap"] = type(w["snap"])(*(t.to(dev) for t in (w["snap"].mean, w["snap"].inv_cov,
+                                                      w["snap"].built)))
+    keys, hypo = runtime.shard_rows(mesh, (w["keys"], w["hypo"]))
+    cfg, mc = w["pso_cfg"], w["map_cfg"]
+    out, solved = {}, []
+    every, dcn_every = DIST_EXCHANGE
+
+    def recording(*args):
+        res = ro.solve_rollout_mode(*args)
+        solved.append(res[0])
+        return res
+    for name, run in (
+        ("solve", lambda: ms.multi_swarm_solve(
+            keys, hypo, RELOC_DEV, _reloc_cost(w), cfg, exchange_every=every,
+            axis_name=runtime.ICI_AXIS, dcn_axis_name=runtime.DCN_AXIS,
+            dcn_exchange_every=dcn_every, mesh=mesh)),
+        ("rollout", lambda: ms.multi_swarm_rollout(
+            keys, hypo, RELOC_DEV, w["snap"], w["points"], w["valid"], cfg, mc,
+            axis_name=runtime.SOLVE_AXES, mesh=mesh)),
+    ):
+        torch.cuda.synchronize()
+        _reset_counts()
+        with mock.patch.object(ms, "solve_rollout_mode", recording):
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = _read_counts()
+        want = {"score": cfg.iterations + 2} if name == "solve" else {"rollout": 1}
+        check(counts == {n: want.get(n, 0) for n in counts},
+              f"10c rank {mesh.rank} {name}: launches {counts}, expected {want}")
+        out[name] = dict(pose=res.pose.cpu(), cost=res.cost.cpu(), wall=wall, counts=counts,
+                         cluster=ro.pso_rollout.LAST_CLUSTER if name == "rollout" else None)
+        print(f"[phase 10c] rank {mesh.rank}: multi_swarm_{name} over its {keys.shape[0]} "
+              f"swarms: {wall:.3f} s; launches {counts}", flush=True)
+    packed = _reloc_packed(dict(w, keys=keys, hypo=hypo))
+    kern = lambda: ro.pso_rollout(*packed)
+    got = kern()
+    cluster = ro.pso_rollout.LAST_CLUSTER
+    check(len(solved) == 1 and torch.equal(got[0], solved[0])
+          and cluster == out["rollout"]["cluster"],
+          f"10c rank {mesh.rank}: K2 on the packed inputs (C={cluster}) is not the path's launch "
+          f"(C={out['rollout']['cluster']})")
+    few = tuple(t[:DIST_CHECK_ROWS] for t in packed[:5]) + packed[5:]
+    plain = lambda: ro.pso_rollout_reference(*few, cluster=cluster)
+    err = max(_compare(f"10c rank {mesh.rank} K2", tuple(t[:DIST_CHECK_ROWS] for t in got), plain(),
+                       *_TOLERANCES["rollout"]))
+    k_ms, plain_ms = _in_turn(mesh, lambda: (_events_ms(kern, 3), _events_ms(plain, 1)))
+    bnd = _rollout_bound(packed[3], packed[4], cfg.population, [cfg.iterations] * keys.shape[0])
+    print(f"[phase 10c] rank {mesh.rank}: K2 at B={keys.shape[0]} (C={cluster}) on the path's "
+          f"inputs vs plain ({DIST_CHECK_ROWS} rows) max abs err {err:.3e}; {k_ms:.4f} ms alone on "
+          f"the card, plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+    out["k2"] = dict(launches=out["rollout"]["counts"]["rollout"], err=err, ms=k_ms,
+                     plain_ms=plain_ms, bnd=bnd, cluster=cluster, batch=keys.shape[0])
+    return out
+
+
+def _merge_cfg():
+    """10d's map: phase 4's scan.launch frame (300 m, 0.5 m cells, 100
+    slots)."""
+    from ndtpso_slam_tpu_torch import config as C
+
+    return C.MapConfig(size_m=300.0, cell_side_m=0.5, window_slots=100)
+
+
+# 10d: the per-cell fields compared with one process's ingestion, and the
+# ring's, compared across ranks by checksum.
+MERGE_CELL_FIELDS = ("mean_c", "inv_cov", "built", "created", "g_sum", "g_count", "g_cov",
+                     "slot_idx", "rot_count", "cur_sum", "cur_count", "cur_m2")
+MERGE_RING_FIELDS = ("slot_sum", "slot_count", "slot_cov")
+
+
+def _checksum(t):
+    """An int64 checksum of a tensor's bits (its 32-bit words, each times an
+    odd weight of its position)."""
+    import torch
+
+    t = t.to(torch.int32) if t.dtype == torch.bool else t.contiguous()
+    words = t.view(torch.int32).reshape(-1).to(torch.int64)
+    weights = (torch.arange(words.numel(), device=t.device, dtype=torch.int64) * 2654435761) % (
+        1 << 31) * 2 + 1
+    return int((words * weights).sum())
+
+
+def _rank_merge(mesh, x):
+    """10d on one rank: phase 4's 50-scan log at its true poses, each rank
+    ingesting its half of each scan, the deltas all-reduced, then the dense
+    build; the time and bytes of each merge; every field's checksum
+    gathered from every rank."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.models import ndt_map
+    from ndtpso_slam_tpu_torch.parallel import distributed, runtime
+
+    dev, mc = mesh.device, _merge_cfg()
+    points, valid, poses = (x["log"][k].to(dev) for k in ("points", "valid", "poses"))
+    state = ndt_map.init_map(mc, device=dev)
+    merge_ms = []
+    # As the one-process reference: each rank's index_add_ sums in one
+    # order on every run, so the gap to the reference comes only from the
+    # split of each scan over the ranks.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for t in range(points.shape[0]):
+            p, v = runtime.shard_rows(mesh, (points[t], valid[t]))
+            before = distributed.merged_fields(state)
+            ndt_map.update(state, mc, poses[t], p, v)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            distributed.merge_deltas(before, state, mesh, runtime.SOLVE_AXES)
+            torch.cuda.synchronize()
+            merge_ms.append((time.perf_counter() - t0) * 1e3)
+            ndt_map.build(state, mc)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    fields = MERGE_CELL_FIELDS + MERGE_RING_FIELDS
+    sums = torch.tensor([_checksum(getattr(state, f)) for f in fields], device=dev)
+    every = runtime.all_gather(mesh, sums, runtime.SOLVE_AXES).cpu()
+    same = bool((every == every[0]).all())
+    check(same, f"10d rank {mesh.rank}: the ranks' maps differ: checksums {every.tolist()}")
+    nbytes = 28.0 * (mc.num_cells + 1)  # [C+1, 5] float32 and [C+1, 2] int32 per merge
+    print(f"[phase 10d] rank {mesh.rank}: {len(merge_ms)} merges of {nbytes / 1e6:.3f} MB each "
+          f"(all-reduce, {mesh.size} ranks): median {np.median(merge_ms):.3f} ms, max "
+          f"{max(merge_ms):.3f} ms; every field's checksum equal on all {mesh.size} ranks",
+          flush=True)
+    out = dict(merge_ms=merge_ms, nbytes=nbytes, checksums=sums.cpu())
+    if mesh.rank == 0:
+        out["fields"] = {f: getattr(state, f).cpu() for f in MERGE_CELL_FIELDS}
+    return out
+
+
+def _rank_fleet(mesh):
+    """10e on one rank: its robots of 9a's fleet through
+    run_offline_fleet_sharded under deterministic algorithms, the launches,
+    phase 4's gate per robot, then K1 at B = its robots on the last solve
+    and E4 on the next step's ids against their plain versions, timed in
+    turn."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.models import slam
+    from ndtpso_slam_tpu_torch.models.scan import Scan
+    from ndtpso_slam_tpu_torch.ops import rollout_local as rl
+    from ndtpso_slam_tpu_torch.parallel import fleet, runtime
+
+    cfg, dev = _fleet_cfg(), mesh.device
+    w = fleet_world(dev)
+    robots = runtime.shard_rows(mesh, np.arange(FLEET_B))
+    w = dict(w, logs=[w["logs"][r] for r in robots], init=w["init"][robots], keys=w["keys"][robots],
+             scans=Scan(points=w["scans"].points[robots], valid=w["scans"].valid[robots]))
+    b, t = w["scans"].valid.shape[:2]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with _solves_logged(rl.pso_rollout_local) as log:
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            states = slam.init_slam_batch(cfg, w["init"], dev)
+            states, poses, costs = fleet.run_offline_fleet_sharded(mesh, states, w["scans"],
+                                                                   w["keys"], cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _read_counts()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    want = {n: {"rollout_local": t - 1, "row_scatter": 2 * t}.get(n, 0) for n in counts}
+    check(counts == want, f"10e rank {mesh.rank}: launches {counts}, expected {want}")
+    mine = poses[robots].cpu().numpy()
+    gt = np.stack([lg.poses for lg in w["logs"]])
+    err = np.hypot(mine[..., 0] - gt[..., 0], mine[..., 1] - gt[..., 1])
+    check((err.mean(axis=1) < GATE_MEAN_M).all() and (err.max(axis=1) < GATE_MAX_M).all(),
+          f"10e rank {mesh.rank}: per-robot gate: mean {err.mean(axis=1)}, max {err.max(axis=1)}")
+    _, keys, guesses, devs, snaps, points, valid, mc, pso_cfg, _ = log["args"]
+    sten, pts = _pack_local(snaps, mc, guesses, points, valid)
+    k1 = (keys, guesses, devs, sten, pts, pso_cfg, mc)
+    dpose, dcost = compare_kernel(*k1)
+    cluster = rl.pso_rollout_local.LAST_CLUSTER
+    ms, plain_ms = _in_turn(mesh, lambda: (
+        _events_ms(lambda: rl.pso_rollout_local(*k1), 50),
+        _events_ms(lambda: rl.pso_rollout_local_reference(*k1), 2)))
+    bnd = _rollout_local_bound(sten, pts, pso_cfg.population, [pso_cfg.iterations] * b)
+    scatter = _in_turn(mesh, lambda: _fleet_scatter(w, cfg, states))
+    print(f"[phase 10e] rank {mesh.rank}: robots {robots.tolist()} x {t} scans: wall {wall:.3f} s "
+          f"({b * t / wall:.2f} scans/s beside {mesh.size - 1} other rank(s)); per-robot mean err "
+          f"{err.mean(axis=1).round(4).tolist()} m, max {err.max(axis=1).round(4).tolist()} m; "
+          f"launches {counts}; K1 at B={b} (C={cluster}) vs plain max |dpose| {dpose:.3e} |dcost| "
+          f"{dcost:.3e}, {ms:.4f} ms alone on the card, plain {plain_ms:.3f} ms, bound "
+          f"{bnd[0]:.6f} ms ({bnd[1]})", flush=True)
+    return dict(poses=poses.cpu(), costs=costs.cpu(), counts=counts, wall=wall,
+                clusters=sorted(set(log["cs"])), k1=dict(err=max(dpose, dcost), ms=ms,
+                                                          plain_ms=plain_ms, bnd=bnd,
+                                                          cluster=cluster, batch=b),
+                scatter=scatter)
+
+
+def rank_main(tmp, device="cuda") -> int:
+    """One rank of phase 10 (``chip_smoke.py --rank DIR``, NDTPSO_* set by
+    the parent): 10a, 10c, 10d and 10e on the rank's share, written to
+    DIR/rank{r}.pt."""
+    import torch
+    import torch.distributed as dist
+
+    from ndtpso_slam_tpu_torch.parallel import runtime
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(runtime.initialize_distributed(backend="gloo", device=device), "rank: NDTPSO_* not set")
+    mesh = runtime.make_hier_mesh(DIST_RANKS, 1, device)
+    want = torch.device("cuda", 0) if device == "cuda" else torch.device(device)
+    check(mesh.device == want, f"rank {mesh.rank} on {mesh.device}, expected {want}")
+    x = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    out = dict(solves=_rank_solves(mesh, x), swarms=_rank_swarms(mesh, x),
+               merge=_rank_merge(mesh, x), fleet=_rank_fleet(mesh))
+    out["routes"] = dict(mesh.routes)
+    torch.save(out, os.path.join(tmp, f"rank{mesh.rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    print(f"[phase 10] rank {mesh.rank} done", flush=True)
+    return 0
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_ranks(tmp):
+    """The DIST_RANKS ranks, each this script with ``--rank``; each waits on
+    its own timeout, and a rank that fails or times out fails the phase
+    (the others are stopped).  Returns the ranks' results, rank order."""
+    import torch
+
+    port = _free_port()
+    procs = []
+    for r in range(DIST_RANKS):
+        env = dict(os.environ, NDTPSO_COORDINATOR=f"localhost:{port}",
+                   NDTPSO_NUM_PROCESSES=str(DIST_RANKS), NDTPSO_PROCESS_ID=str(r),
+                   PYTHONPATH=HERE)
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", tmp],
+                                      cwd=HERE, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    try:
+        for r, p in enumerate(procs):
+            try:
+                text, _ = p.communicate(timeout=RANK_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"chip_smoke: 10: rank {r} timed out after {RANK_TIMEOUT_S} s")
+            lines = [ln for ln in text.splitlines() if ln.startswith("[phase 10")]
+            print("\n".join(lines), flush=True)
+            check(p.returncode == 0, f"10: rank {r} exited {p.returncode}:\n{text[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(DIST_RANKS)]
+
+
+def _emulated_two_tier(w, hosts, per_rank):
+    """10c's reference: all K swarms in this process, with the two-tier
+    merges of a hosts x 1 mesh written out (within a rank's swarms every
+    DIST_EXCHANGE[0] iterations, over all of them every DIST_EXCHANGE[1],
+    and at the end)."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.models import pso
+
+    every, dcn_every = DIST_EXCHANGE
+    k = w["hypo"].shape[0]
+
+    def merge(gbest, cost, groups):
+        pose, best = gbest.clone(), cost.clone()
+        for ranks in groups:
+            rows = [pso._select_min(cost[r * per_rank:(r + 1) * per_rank],
+                                    gbest[r * per_rank:(r + 1) * per_rank]) for r in ranks]
+            c, p = pso._select_min(torch.stack([c for c, _ in rows]),
+                                   torch.stack([p for _, p in rows]))
+            for r in ranks:
+                pose[r * per_rank:(r + 1) * per_rank], best[r * per_rank:(r + 1) * per_rank] = p, c
+        return pose, best
+
+    hosts_groups = [[h] for h in range(hosts)]
+    everything = [list(range(hosts))]
+    exchange = lambda i, gbest, cost: (
+        merge(gbest, cost, everything) if (i + 1) % dcn_every == 0 else
+        merge(gbest, cost, hosts_groups) if (i + 1) % every == 0 else None)
+    devs = w["hypo"].new_tensor(RELOC_DEV).expand(k, 3)
+    res = pso.pso_solve_batch(w["keys"], w["hypo"], devs, _reloc_cost(w), w["pso_cfg"],
+                              exchange=exchange)
+    pose, cost = merge(res.pose, res.cost, everything)
+    return pose[0], cost[0]
+
+
+def _held(name, got, ref, c_rank, c_ref, tol, log):
+    """Bit for bit where the kernel ran at one cluster size both ways, else
+    within ``tol`` with the reason printed.  Returns max |d|."""
+    import torch
+
+    (gp, gc), (rp, rc) = got, ref
+    d = max(float((gp - rp).abs().max()), float((gc - rc).abs().max()))
+    if c_rank == c_ref:
+        check(torch.equal(gp, rp) and torch.equal(gc, rc),
+              f"{name}: differs from one process at equal cluster size {c_ref}: {d:.3e}")
+    else:
+        _compare(name, (gp, gc), (rp, rc), *tol)
+        log.append(f"{name}: the ranks launched at C {c_rank}, one process at C {c_ref}: summed "
+                   f"in other orders, held to {tol} (max |d| {d:.3e})")
+    return d
+
+
+def phase_distributed(world, lg, k_ms, dev=None):
+    """Phase 10: the sharded solver, the hosts x chips runtime, the exact
+    map merge, the cross-rank exchange and the sharded fleet, as
+    DIST_RANKS ranks of this script on the card, each result held to this
+    process's unsharded run; then 10b, the sharded solver at world 1 over
+    NCCL in this process.  ``k_ms`` is phase 5's {kernel name: ms}.  Returns
+    the kernels-line entries of the ranks' kernels."""
+    import torch
+    import torch.distributed as dist
+
+    from ndtpso_slam_tpu_torch.models import ndt_map
+    from ndtpso_slam_tpu_torch.models import scan as scan_mod
+    from ndtpso_slam_tpu_torch.models import slam
+    from ndtpso_slam_tpu_torch.ops import rollout as ro
+    from ndtpso_slam_tpu_torch.ops import rollout_local as rl
+    from ndtpso_slam_tpu_torch.parallel import fleet, mesh, multi_swarm, runtime
+
+    t_phase = time.perf_counter()
+    smi, cpu = _smi(), lambda t: t.cpu()
+    dev = dev or torch.device("cuda")
+    keys, guesses, devs, snaps, points, valid = world["args"]
+    reloc = reloc_world(dev)
+    mc = _merge_cfg()
+    scans = [scan_mod.load_laser(r, lg.angle_min, lg.angle_increment, lg.range_max,
+                                 _fleet_cfg().scan, mc, device=dev) for r in lg.ranges]
+    log_x = dict(points=torch.stack([s.points for s in scans]).cpu(),
+                 valid=torch.stack([s.valid for s in scans]).cpu(),
+                 poses=torch.from_numpy(lg.poses.astype(np.float32)))
+    x = dict(batch={k: world[k] for k in ("map_cfg", "pso_cfg", "true")},
+             batch_args=(cpu(keys), cpu(guesses), cpu(devs), tuple(map(cpu, (
+                 snaps.mean, snaps.inv_cov, snaps.built))), cpu(points), cpu(valid)),
+             reloc=dict(reloc, **{k: cpu(reloc[k]) for k in ("points", "valid", "keys", "hypo")},
+                        snap=ndt_map.MapSnapshot(*map(cpu, (reloc["snap"].mean,
+                                                            reloc["snap"].inv_cov,
+                                                            reloc["snap"].built)))),
+             log=log_x)
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        torch.save(x, os.path.join(tmp, "inputs.pt"))
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(tmp)
+        ranks_s = time.perf_counter() - t0
+    notes = []
+
+    # 10a: each rank's rows against one process's solve_batch.
+    b = keys.shape[0]
+    per = b // DIST_RANKS
+    refs = {}
+    for mode, kname, label in DIST_MODES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = mesh.solve_batch(*world["args"], world["map_cfg"], world["pso_cfg"], mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c_ref = None if kname == "score" else _launch_counts()[kname].LAST_CLUSTER
+        refs[mode] = ref
+        worst = 0.0
+        tol = _TOLERANCES["rollout_local_turbo" if kname == "rollout_local" else "rollout"]
+        for r, out in enumerate(ranks):
+            o = out["solves"][mode]
+            rows = slice(r * per, (r + 1) * per)
+            worst = max(worst, _held(f"10a {mode} rank {r}", (o["pose"], o["cost"]),
+                                     (ref.pose[rows].cpu(), ref.cost[rows].cpu()), o["cluster"],
+                                     c_ref, tol, notes))
+            check(all(torch.equal(a, c) for a, c in zip(o["gathered"], ranks[0]["solves"][mode]["gathered"])),
+                  f"10a {mode}: rank {r} gathered another batch than rank 0")
+        gp, gc = ranks[0]["solves"][mode]["gathered"]
+        check(torch.equal(gp, torch.cat([o["solves"][mode]["pose"] for o in ranks])),
+              f"10a {mode}: the gathered rows are not the ranks' rows in rank order")
+        err = np.abs(gp.numpy() - world["true"])
+        check(np.median(err[:, :2]) < GATE_MEDIAN_XY_M and np.median(err[:, 2]) < GATE_MEDIAN_TH_RAD,
+              f"10a {mode}: accuracy gate {np.median(err[:, :2]):.4f} m {np.median(err[:, 2]):.5f} rad")
+        walls = [o["solves"][mode]["wall"] for o in ranks]
+        kms = [o["solves"][mode]["ms"] for o in ranks]
+        print(f"[phase 10a] sharded {mode}, B={b} as {DIST_RANKS} x {per} over gloo ({smi}): "
+              f"gathered rows vs one process's solve_batch max |d| {worst:.3e} "
+              f"({'bit-equal' if worst == 0 else 'see below'}); median xy "
+              f"{np.median(err[:, :2]):.4f} m; per-rank wall of a warm call "
+              f"{[round(v, 3) for v in walls]} s against {wall:.3f} s in one process; {label} per rank "
+              f"{[round(v, 4) for v in kms]} ms (B={per}, each alone on the card) beside phase "
+              f"{'5c' if kname == 'rollout_local' else '5b'}'s "
+              f"{k_ms[{'fast_fused': 'score'}.get(mode, mode)]:.4f} ms at "
+              f"B={BATCH_SMALL if kname == 'rollout_local' else b}")
+
+    # 10b: world 1 over NCCL in this process.
+    runtime.initialize_distributed(f"localhost:{_free_port()}", 1, 0, device=dev)
+    try:
+        one = mesh.make_mesh(device=dev)
+        check(dist.get_backend() == ("nccl" if dev.type == "cuda" else "gloo"),
+              f"10b: backend {dist.get_backend()}")
+        for mode, kname, _ in DIST_MODES:
+            _reset_counts()
+            res = mesh.solve_batch_sharded(one, *world["args"], world["map_cfg"], world["pso_cfg"],
+                                           mode)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            check(counts[kname] == _expected_launches(mode, world["pso_cfg"].iterations)[kname],
+                  f"10b {mode}: launches {counts}")
+            check(torch.equal(res.pose, refs[mode].pose) and torch.equal(res.cost, refs[mode].cost),
+                  f"10b {mode}: the NCCL world-1 solve differs from solve_batch")
+        print(f"[phase 10b] world 1 over {dist.get_backend()}: solve_batch_sharded in {', '.join(m for m, _, _ in DIST_MODES)}"
+              f" at B={b} bit-equal to solve_batch; collectives {dict(one.routes)}")
+    finally:
+        dist.destroy_process_group()
+
+    # 10c: the exchange against all K swarms in one process at the cadence.
+    k = reloc["hypo"].shape[0]
+    pose, cost = _emulated_two_tier(reloc, DIST_RANKS, k // DIST_RANKS)
+    for r, out in enumerate(ranks):
+        o = out["swarms"]["solve"]
+        check(torch.equal(o["pose"], pose.cpu()) and torch.equal(o["cost"], cost.cpu()),
+              f"10c rank {r}: multi_swarm_solve differs from the one-process two-tier run: "
+              f"{o['pose'].tolist()} vs {pose.tolist()}")
+    _reloc_gate("10c multi_swarm_solve", ranks[0]["swarms"]["solve"]["pose"], reloc["true"])
+    full = multi_swarm.multi_swarm_rollout(reloc["keys"], reloc["hypo"], RELOC_DEV, reloc["snap"],
+                                           reloc["points"], reloc["valid"], reloc["pso_cfg"],
+                                           reloc["map_cfg"])
+    c_full = ro.pso_rollout.LAST_CLUSTER
+    d_roll = max(_held(f"10c multi_swarm_rollout rank {r}", (o["swarms"]["rollout"]["pose"],
+                                                              o["swarms"]["rollout"]["cost"]),
+                       (full.pose.cpu(), full.cost.cpu()), o["swarms"]["rollout"]["cluster"],
+                       c_full, _TOLERANCES["rollout"], notes) for r, o in enumerate(ranks))
+    _reloc_gate("10c multi_swarm_rollout", ranks[0]["swarms"]["rollout"]["pose"], reloc["true"])
+    print(f"[phase 10c] {DIST_RANKS} hosts x 1 chip, K={k} ({k // DIST_RANKS} per rank), P="
+          f"{reloc['pso_cfg'].population}, I={reloc['pso_cfg'].iterations} ({smi}): "
+          f"multi_swarm_solve (K3, merge within a rank every {DIST_EXCHANGE[0]}, across ranks every "
+          f"{DIST_EXCHANGE[1]}) bit-equal on every rank to the one-process run at that cadence; "
+          f"multi_swarm_rollout (K2, the exact winners gathered over ranks) vs the one-process K={k} "
+          f"call max |d| {d_roll:.3e}; rank walls "
+          f"{[round(o['swarms'][n]['wall'], 3) for o in ranks for n in ('solve', 'rollout')]} s")
+
+    # 10d: the merged map against one process ingesting every point.
+    st = ndt_map.init_map(mc, device=dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for t in range(len(scans)):
+            ndt_map.update(st, mc, log_x["poses"][t].to(dev), scans[t].points, scans[t].valid)
+            ndt_map.build(st, mc)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    got = ranks[0]["merge"]["fields"]
+    diffs = {}
+    for f in MERGE_CELL_FIELDS:  # the real cells; row C is the spare row of dropped points
+        a, c = got[f][:mc.num_cells], getattr(st, f)[:mc.num_cells].cpu()
+        if a.dtype in (torch.bool, torch.int32):
+            check(torch.equal(a, c), f"10d: {f} differs from one process's ingestion")
+        else:
+            diffs[f] = float((a - c).abs().max())
+    check(diffs["cur_sum"] <= 1e-4 and diffs["g_sum"] <= 1e-5,
+          f"10d: cur_sum {diffs['cur_sum']:.3e} (1e-4), g_sum {diffs['g_sum']:.3e} (1e-5)")
+    ring_ref = {f: _checksum(getattr(st, f)) for f in MERGE_RING_FIELDS}
+    ring_got = dict(zip(MERGE_CELL_FIELDS + MERGE_RING_FIELDS,
+                        ranks[0]["merge"]["checksums"].tolist()))
+    check(ring_got["slot_count"] == ring_ref["slot_count"], "10d: slot_count differs")
+    ms_all = np.array([o["merge"]["merge_ms"] for o in ranks])
+    del st
+    print(f"[phase 10d] exact map merge, {mc.size_m:.0f} m / {mc.cell_side_m} m / "
+          f"{mc.window_slots} slots, {len(scans)} scans at their "
+          f"true poses, {DIST_RANKS} ranks each ingesting half of each scan ({smi}): integer "
+          f"fields, flags and slot counts bit-equal to one process ingesting everything; max |d| "
+          f"{ {f: float(f'{v:.3e}') for f, v in diffs.items()} } (cur_sum within 1e-4, g_sum "
+          f"within 1e-5); every rank's fields bit-equal (checksums); {ranks[0]['merge']['nbytes'] / 1e6:.3f}"
+          f" MB per merge and rank, merge time per scan (ms) rank 0 "
+          f"{np.round(ms_all[0], 2).tolist()}; median {np.median(ms_all):.3f} ms, max "
+          f"{ms_all.max():.3f} ms over both ranks")
+
+    # 10e: the sharded fleet against the unsharded one.
+    cfg = _fleet_cfg()
+    w = fleet_world(dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with _solves_logged(rl.pso_rollout_local) as log:
+            states = slam.init_slam_batch(cfg, w["init"], dev)
+            _, fposes, fcosts = fleet.run_offline_fleet(states, w["scans"], w["keys"], cfg)
+            del states
+    finally:
+        torch.use_deterministic_algorithms(False)
+    c_ref = sorted(set(log["cs"]))
+    gp = ranks[0]["fleet"]["poses"]
+    per_f = FLEET_B // DIST_RANKS
+    equal = 0
+    for r, out in enumerate(ranks):
+        check(torch.equal(out["fleet"]["poses"], gp), f"10e: rank {r} gathered other poses")
+        rows = slice(r * per_f, (r + 1) * per_f)
+        d = _held(f"10e robots {rows.start}-{rows.stop - 1}", (gp[rows], ranks[0]["fleet"]["costs"][rows]),
+                  (fposes[rows].cpu(), fcosts[rows].cpu()), out["fleet"]["clusters"], c_ref,
+                  (0.0, TRAJ_ATOL, TRAJ_ATOL), notes)
+        equal += per_f * (d == 0)
+    walls = [o["fleet"]["wall"] for o in ranks]
+    print(f"[phase 10e] 9a's fleet of {FLEET_B} robots through run_offline_fleet_sharded, "
+          f"{per_f} per rank ({smi}): {equal} of {FLEET_B} robots bit-equal to the unsharded "
+          f"fleet (deterministic algorithms; C {ranks[0]['fleet']['clusters']} per rank, {c_ref} "
+          f"unsharded); rank walls {[round(v, 3) for v in walls]} s, "
+          f"{FLEET_B * FLEET_SCANS / max(walls):.2f} scans/s aggregate over the ranks (one card, "
+          f"time-sliced: overhead, not scaling)")
+    for line in notes:
+        print(f"[phase 10] {line}")
+    routes = {f"{op} {backend} {route}": n for (op, backend, route), n in
+              ranks[0]["routes"].items()}
+    print(f"[phase 10] collectives of rank 0 (op, backend, tensors' device: calls): {routes}; "
+          f"ranks {ranks_s:.1f} s from spawn to results; phase 10 wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    o, f0 = ranks[0]["solves"], ranks[0]["fleet"]
+    entries = []
+    for mode, kname, _ in DIST_MODES:
+        e = o[mode]
+        source = {"rollout": "rollout.cu", "rollout_local": "rollout_local.cu", "score": "score.cu"}
+        replaces = {"rollout": "pallas_rollout.py:111", "rollout_local": "pallas_rollout.py:618",
+                    "score": "pallas_score.py:41"}
+        extra = {} if kname == "score" else dict(cluster=e["cluster"])
+        entries.append(_entry(f"{'score' if kname == 'score' else mode}_rank", SRC + source[kname],
+                              "ndtpso_slam_tpu/ops/" + replaces[kname], e["launches"], e["err"],
+                              e["ms"], e["plain_ms"], e["bnd"], batch=per, ranks=DIST_RANKS,
+                              plain_rows=e["plain_rows"], **extra))
+    k2 = ranks[0]["swarms"]["k2"]
+    entries.append(_entry("rollout_multiswarm_rank", SRC + "rollout.cu",
+                          "ndtpso_slam_tpu/ops/pallas_rollout.py:111", k2["launches"], k2["err"],
+                          k2["ms"], k2["plain_ms"], k2["bnd"], cluster=k2["cluster"],
+                          batch=k2["batch"], ranks=DIST_RANKS, plain_rows=DIST_CHECK_ROWS))
+    k1 = f0["k1"]
+    entries.append(_entry("rollout_local_fleet_rank", SRC + "rollout_local.cu",
+                          "ndtpso_slam_tpu/ops/pallas_rollout.py:551", f0["counts"]["rollout_local"],
+                          k1["err"], k1["ms"], k1["plain_ms"], k1["bnd"], cluster=k1["cluster"],
+                          batch=k1["batch"], ranks=DIST_RANKS))
+    kt, it, s_plain, s_bnd = f0["scatter"]
+    entries.append(_entry("row_scatter_fleet_rank", SRC + "row_scatter.cu",
+                          "experiments/scatter_unique_ab.py:63", f0["counts"]["row_scatter"], 0.0,
+                          kt["ms"], s_plain, s_bnd, calls_per_step=2, device_ms=kt["device_ms"],
+                          host_us=kt["host_us"], ranks=DIST_RANKS, indexed_assignment=it))
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -3265,6 +3987,7 @@ def main() -> int:
     print(f"[phase 7] wall {time.perf_counter() - t0:.1f} s")
     kernels.append(phase_whole_node(lg, world))
     kernels.extend(phase_fleets_sessions(torch.device("cuda")))
+    kernels.extend(phase_distributed(world, lg, {k: v[1] for k, v in timed.items()}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -3275,4 +3998,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[2]) if sys.argv[1:2] == ["--rank"] else main())

@@ -49,7 +49,7 @@ import torch
 
 from ndtpso_slam_tpu_torch.config import MapConfig, resolve_device
 from ndtpso_slam_tpu_torch.ops import gaussian
-from ndtpso_slam_tpu_torch.ops.geometry import cell_index
+from ndtpso_slam_tpu_torch.ops.geometry import cell_index, transform_points
 
 
 @dataclasses.dataclass
@@ -188,6 +188,15 @@ def add_points_stacked(
     _flat(state.created).index_fill_(0, sidx, True)
     _flat(state.built).index_fill_(0, sidx, False)
     return state
+
+
+def update(
+    state: NdtMapState, cfg: MapConfig, pose: torch.Tensor, points: torch.Tensor,
+    valid: torch.Tensor,
+) -> NdtMapState:
+    """Transform a scan [N, 2] by ``pose`` [3] and ingest it, in place
+    (``NDTFrame::update``, ``ndtframe.cpp:187-198``)."""
+    return add_points(state, cfg, transform_points(points, pose), valid)
 
 
 @dataclasses.dataclass

@@ -252,7 +252,7 @@ def pso_solve_batch(
     cfg: PSOConfig,
     rng_mode: str = "threefry",
     early_exit: int = 0,
-    exchange_every: int = 0,
+    exchange=None,
 ) -> PsoResult:
     """B independent solves with an explicit batch axis.
 
@@ -261,14 +261,15 @@ def pso_solve_batch(
     pose block at once, which is what lets the fused scoring kernel run one
     grid over (solves, particle tiles).  With ``early_exit`` each solve stops
     on its own: a solve whose best has stalled that many iterations keeps its
-    state while the others go on.  With ``exchange_every`` = e > 0 the solves
-    are the islands of one multi-swarm search (``parallel/multi_swarm.py``):
-    after the global-best update of iteration i, when (i + 1) % e == 0, every
-    solve adopts the best incumbent of the batch (first minimum), while the
+    state while the others go on.  With ``exchange`` the solves are the
+    islands of one multi-swarm search (``parallel/multi_swarm.py:
+    island_exchange``): ``exchange(i, gbest [B, 3], gbest_cost [B])`` runs
+    after the global-best update of each iteration i and returns the (pose,
+    cost) the solves adopt, [3] and [] or one per solve, or None; the
     personal bests stay local.  Returns pose [B, 3], cost [B]."""
     _check_rng_mode(rng_mode)
-    if early_exit > 0 and exchange_every > 0:
-        raise ValueError("early_exit and exchange_every cannot be combined")
+    if early_exit > 0 and exchange is not None:
+        raise ValueError("early_exit and an exchange cannot be combined")
     dtype, dev = guesses.dtype, guesses.device
     p = cfg.population
     keys = keys.to(device=dev, dtype=torch.int64) & 0xFFFFFFFF
@@ -308,9 +309,9 @@ def pso_solve_batch(
         gimp = bc < gbest_cost
         n_gbest = torch.where(gimp[:, None], bp, gbest)
         n_gbest_cost = torch.where(gimp, bc, gbest_cost)
-        if exchange_every > 0 and (i + 1) % exchange_every == 0:
-            mc, mp = _select_min(n_gbest_cost, n_gbest)
-            n_gbest, n_gbest_cost = mp.expand_as(n_gbest), mc.expand_as(n_gbest_cost)
+        merged = None if exchange is None else exchange(i, n_gbest, n_gbest_cost)
+        if merged is not None:
+            n_gbest, n_gbest_cost = merged[0].expand_as(n_gbest), merged[1].expand_as(n_gbest_cost)
         new = (n_pos, n_vel, n_pbest, n_pbest_cost, n_gbest, n_gbest_cost)
         if early_exit > 0:
             # Stalled solves keep their state: the same as leaving the loop.

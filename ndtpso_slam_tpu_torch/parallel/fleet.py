@@ -39,8 +39,9 @@ reproduces its solo ``run_offline`` bit for bit.
   fleets run ``models/slam.py:run_offline_batch`` or the session pool's
   per-session step.
 
-Sharding the fleet over several devices (:func:`make_fleet_sharded`) is not
-ported yet (ROADMAP E1).
+Over ranks (``torch.distributed``, :func:`make_fleet_sharded`): each rank
+runs :func:`run_offline_fleet` on its own robots.  Maps are private, so the
+run needs no collective; the poses and costs gather in rank order.
 """
 
 from __future__ import annotations
@@ -68,6 +69,7 @@ from ndtpso_slam_tpu_torch.ops import rng
 from ndtpso_slam_tpu_torch.ops.geometry import cell_index, transform_points
 from ndtpso_slam_tpu_torch.ops.rollout import solve_rollout_mode
 from ndtpso_slam_tpu_torch.ops.row_scatter import row_scatter
+from ndtpso_slam_tpu_torch.parallel import runtime
 
 
 def _mask(host: np.ndarray, device) -> torch.Tensor:
@@ -351,14 +353,24 @@ def run_offline_fleet(
     return states, torch.stack(poses, dim=1), torch.stack(costs, dim=1)
 
 
-def make_fleet_sharded(mesh, cfg: SlamConfig, axis="solves"):
-    raise NotImplementedError(
-        "make_fleet_sharded: the fleet sharded over several devices is not ported yet (ROADMAP E1)"
-    )
+def make_fleet_sharded(mesh, cfg: SlamConfig, axis=None):
+    """The fleet with its robots sharded over the ranks along ``axis``
+    (default: every axis of the mesh): a
+    runner ``(states, scans, base_keys) -> (states, poses, costs)`` over
+    this rank's robots (states from ``init_slam_batch`` of its robots, scans
+    [B/D, T, ...], keys [B/D, 2]), each rank's :func:`run_offline_fleet`.
+    The configuration is checked once, here; ``axis`` is only validated:
+    the caller cuts its robots with ``runtime.shard_rows``."""
+    _check_fleet_cfg(cfg)
+    mesh.axis_names(mesh.axes if axis is None else axis)
+    return lambda states, scans, base_keys: run_offline_fleet(states, scans, base_keys, cfg)
 
 
-def run_offline_fleet_sharded(mesh, states, scans, base_keys, cfg: SlamConfig, axis="solves"):
-    raise NotImplementedError(
-        "run_offline_fleet_sharded: the fleet sharded over several devices is not ported yet "
-        "(ROADMAP E1)"
-    )
+def run_offline_fleet_sharded(mesh, states: SlamState, scans: Scan, base_keys, cfg: SlamConfig,
+                              axis=None) -> Tuple[SlamState, torch.Tensor, torch.Tensor]:
+    """One sharded fleet run: this rank's robots in, (its states, the whole
+    fleet's poses [B, T, 3] and costs [B, T] in rank order) out on every
+    rank.  The maps stay on their ranks."""
+    states, poses, costs = make_fleet_sharded(mesh, cfg, axis)(states, scans, base_keys)
+    poses, costs = runtime.gather_global(mesh, (poses, costs), axis)
+    return states, poses, costs

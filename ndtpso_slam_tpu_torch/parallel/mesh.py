@@ -20,8 +20,15 @@ together:
   the JAX package.
 
 The JAX package's ``ROLLOUT_GRID_BLOCK`` (a TPU toolchain workaround) has no
-counterpart.  Sharding over several devices (``make_mesh``,
-``make_sharded_solver``, ``solve_batch_sharded``) is not ported yet.
+counterpart.
+
+Sharding over ranks (``torch.distributed``, ``parallel/runtime.py``):
+:func:`make_mesh` is the flat mesh of the world's ranks,
+:func:`make_sharded_solver` runs :func:`solve_batch` on each rank's rows
+(one rank, one device: a rollout mode makes one kernel launch per call and
+rank, ``fast_fused`` its 52), and :func:`solve_batch_sharded` gathers the
+rows back.  Solves are independent, so a solve needs no collective, and each
+row keeps its own key.
 """
 
 from __future__ import annotations
@@ -33,7 +40,9 @@ from ndtpso_slam_tpu_torch.models import cost as cost_mod
 from ndtpso_slam_tpu_torch.models.ndt_map import MapSnapshot
 from ndtpso_slam_tpu_torch.models.pso import OPTIMIZERS, PsoResult, pso_solve_batch
 from ndtpso_slam_tpu_torch.ops.rollout import solve_rollout_mode
+from ndtpso_slam_tpu_torch.parallel import runtime
 
+SOLVE_AXIS = "solves"
 STENCIL_RADIUS = cost_mod.DEFAULT_STENCIL_RADIUS
 
 # Every cost/solver mode solve_batch dispatches on; an unknown string is
@@ -57,24 +66,47 @@ COST_MODES = frozenset(
 )
 
 
-def _not_ported(name: str):
-    raise NotImplementedError(
-        f"{name}: sharding solves over several devices is not ported yet (ROADMAP E1)"
-    )
+def make_mesh(n_devices=None, axis=SOLVE_AXIS, device="cuda") -> runtime.Mesh:
+    """The flat mesh of the world's ranks on one axis (``n_devices``, when
+    given, must be the world size), each rank on its own device
+    (``runtime.rank_device``)."""
+    return runtime.mesh_over((axis,), (n_devices or runtime.world_size(),), device)
 
 
-def make_mesh(n_devices=None, axis="solves"):
-    _not_ported("make_mesh")
+def make_sharded_solver(mesh: runtime.Mesh, map_cfg: MapConfig, pso_cfg: PSOConfig,
+                        cost_mode="fast", shared_map=False, axes=SOLVE_AXIS, early_exit=0):
+    """A solve over this rank's rows of a batch sharded over ``axes`` (the
+    flat axis, or ``runtime.SOLVE_AXES`` on the hosts x chips mesh):
+    ``(keys, guesses, deviations, snaps, points, valid) -> PsoResult`` of
+    the same rows.  With ``shared_map=True`` every solve reads one
+    replicated snapshot [C, ...]; otherwise the snapshots are the rows'
+    own, stacked [B/D, C, ...].  ``axes`` is only validated: the caller
+    cuts its rows with ``runtime.shard_rows``."""
+    mesh.axis_names(axes)
+    if cost_mode not in COST_MODES:
+        raise ValueError(
+            f"unknown cost_mode {cost_mode!r}; expected one of {sorted(COST_MODES)}"
+        )
+
+    def solve(keys, guesses, deviations, snaps, points, valid) -> PsoResult:
+        if (snaps.built.dim() == 1) != shared_map:
+            raise ValueError(f"shared_map={shared_map} but the snapshot's built is "
+                             f"{tuple(snaps.built.shape)}")
+        return solve_batch(keys, guesses, deviations, snaps, points, valid, map_cfg, pso_cfg,
+                           cost_mode, early_exit=early_exit)
+
+    return solve
 
 
-def make_sharded_solver(mesh, map_cfg, pso_cfg, cost_mode="fast", shared_map=False,
-                        axes="solves", early_exit=0):
-    _not_ported("make_sharded_solver")
-
-
-def solve_batch_sharded(mesh, keys, guesses, deviations, snaps, points, valid, map_cfg,
-                        pso_cfg, cost_mode="fast", shared_map=False):
-    _not_ported("solve_batch_sharded")
+def solve_batch_sharded(mesh: runtime.Mesh, keys, guesses, deviations, snaps, points, valid,
+                        map_cfg: MapConfig, pso_cfg: PSOConfig, cost_mode="fast",
+                        shared_map=False) -> PsoResult:
+    """One sharded solve: this rank's rows in, the whole batch out on every
+    rank (its rows gathered in rank order over the flat axis)."""
+    solver = make_sharded_solver(mesh, map_cfg, pso_cfg, cost_mode, shared_map,
+                                 axes=mesh.axes)
+    res = solver(keys, guesses, deviations, snaps, points, valid)
+    return PsoResult(*runtime.gather_global(mesh, tuple(res), mesh.axes))
 
 
 def _solve_one(key, guess, deviation, snap, points, valid, map_cfg, pso_cfg, cost_mode,
@@ -106,7 +138,7 @@ def solve_batch(
     keys: torch.Tensor,  # [B, 2] integer u32 words
     guesses: torch.Tensor,  # [B, 3]
     deviations: torch.Tensor,  # [B, 3]
-    snaps: MapSnapshot,  # stacked [B, C, ...]
+    snaps: MapSnapshot,  # stacked [B, C, ...], or one shared [C, ...]
     points: torch.Tensor,  # [B, N, 2]
     valid: torch.Tensor,  # [B, N]
     map_cfg: MapConfig,
@@ -149,10 +181,12 @@ def solve_batch(
 
         return pso_solve_batch(keys, guesses, deviations, batched_cost, pso_cfg)
     keys = keys.to(torch.int64).cpu() & 0xFFFFFFFF
+    shared = snaps.built.dim() == 1
     results = [
         _solve_one(
             (int(keys[b, 0]), int(keys[b, 1])), guesses[b], deviations[b],
-            MapSnapshot(mean=snaps.mean[b], inv_cov=snaps.inv_cov[b], built=snaps.built[b]),
+            snaps if shared else MapSnapshot(mean=snaps.mean[b], inv_cov=snaps.inv_cov[b],
+                                             built=snaps.built[b]),
             points[b], valid[b], map_cfg, pso_cfg, cost_mode, optimizer,
         )
         for b in range(guesses.shape[0])

@@ -14,8 +14,17 @@ Port of ``ndtpso_slam_tpu/parallel/multi_swarm.py`` on one GPU:
   the per-swarm rollout costs are bound at different hypotheses and are not
   comparable.
 
-The cross-device exchange (``axis_name``, ``dcn_axis_name``,
-``dcn_exchange_every``) is not ported yet and raises (ROADMAP E1).
+Across ranks (``torch.distributed``, ``parallel/runtime.py``) each rank
+runs its own swarms, and ``axis_name`` (one mesh axis or a tuple) names the
+ranks a merge covers, with ``mesh`` the rank's :class:`~runtime.Mesh`.  A
+merge is the first minimum over the rank's swarms, an all-gather of that
+(cost, pose) over the ranks along the axes, and the first minimum again, in
+the order ``jax.lax.all_gather`` gives a tuple of axes (the first named
+outermost; ``Mesh.members``).  With ``dcn_axis_name``, the merge every
+``exchange_every`` iterations covers ``axis_name`` only (a host's devices)
+and every ``dcn_exchange_every`` iterations it covers ``axis_name`` +
+``dcn_axis_name`` (all hosts), that turn taking the place of the other; the
+final merge covers every axis.
 """
 
 from __future__ import annotations
@@ -27,21 +36,48 @@ from ndtpso_slam_tpu_torch.models import cost as cost_mod
 from ndtpso_slam_tpu_torch.models.ndt_map import MapSnapshot
 from ndtpso_slam_tpu_torch.models.pso import RNG_MODES, PsoResult, _select_min, pso_solve_batch
 from ndtpso_slam_tpu_torch.ops.rollout import SCORE_DTYPES, solve_rollout_mode
+from ndtpso_slam_tpu_torch.parallel import runtime
 
 
-def _no_mesh(*axes) -> None:
-    if any(a is not None for a in axes):
-        raise NotImplementedError(
-            "the multi-swarm exchange across devices is not ported yet (ROADMAP E1)"
-        )
+def _axes(axis_name) -> tuple:
+    if axis_name is None:
+        return ()
+    return (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
 
 
-def _global_merge(gbest: torch.Tensor, gbest_cost: torch.Tensor, axis_name=None):
-    """The best (pose [3], cost []) over the swarm axis [K]: the first
-    minimum."""
-    _no_mesh(axis_name)
+def _global_merge(gbest: torch.Tensor, gbest_cost: torch.Tensor, mesh=None, axes=()):
+    """The best (pose [3], cost []) over the swarm axis [K] and the ranks
+    along ``axes``: the first minimum of this rank's, then of the gathered
+    ones."""
     best_cost, best_pose = _select_min(gbest_cost, gbest)
+    if axes:
+        if mesh is None:
+            raise ValueError(f"merging over the axes {axes} needs the rank's mesh")
+        rows = runtime.all_gather(mesh, torch.cat([best_cost[None], best_pose]), axes)  # [D, 4]
+        best_cost, best_pose = _select_min(rows[:, 0], rows[:, 1:])
     return best_pose, best_cost
+
+
+def island_exchange(exchange_every=1, axis_name=None, dcn_axis_name=None,
+                    dcn_exchange_every=None, mesh=None):
+    """``pso_solve_batch``'s exchange for K islands: after iteration i, when
+    (i + 1) % ``dcn_exchange_every`` == 0 (with ``dcn_axis_name``) the first
+    minimum over the swarms and the ranks along ``axis_name`` +
+    ``dcn_axis_name``, else when (i + 1) % ``exchange_every`` == 0 over the
+    swarms and the ranks along ``axis_name``.  Returns (the exchange, the
+    axes of the final merge)."""
+    ici = _axes(axis_name)
+    every = ici + _axes(dcn_axis_name)
+    dcn_every = (dcn_exchange_every or exchange_every) if dcn_axis_name is not None else None
+
+    def exchange(i, gbest, gbest_cost):
+        if dcn_every is not None and (i + 1) % dcn_every == 0:
+            return _global_merge(gbest, gbest_cost, mesh, every)
+        if exchange_every > 0 and (i + 1) % exchange_every == 0:
+            return _global_merge(gbest, gbest_cost, mesh, ici)
+        return None
+
+    return exchange, every
 
 
 def multi_swarm_solve(
@@ -54,16 +90,20 @@ def multi_swarm_solve(
     axis_name=None,
     dcn_axis_name=None,
     dcn_exchange_every=None,
+    mesh=None,
 ) -> PsoResult:
     """K-swarm PSO against one shared cost; returns the single best (pose
-    [3], cost []) in the caller's dtype.  ``exchange_every=1`` makes every
-    swarm chase one best; ``exchange_every >= cfg.iterations`` leaves them
-    independent until the final merge."""
-    _no_mesh(axis_name, dcn_axis_name, dcn_exchange_every)
+    [3], cost []) in the caller's dtype, the same on every rank.
+    ``exchange_every=1`` makes every swarm chase one best; ``exchange_every
+    >= cfg.iterations`` leaves them independent until the final merge.
+    ``axis_name`` / ``dcn_axis_name`` merge across the ranks of ``mesh``
+    (module docstring)."""
+    exchange, every = island_exchange(exchange_every, axis_name, dcn_axis_name,
+                                      dcn_exchange_every, mesh)
     k = guesses.shape[0]
     devs = torch.as_tensor(deviation, dtype=guesses.dtype).to(guesses.device).expand(k, 3)
-    res = pso_solve_batch(keys, guesses, devs, cost_fn, cfg, exchange_every=exchange_every)
-    pose, cost = _global_merge(res.pose, res.cost)
+    res = pso_solve_batch(keys, guesses, devs, cost_fn, cfg, exchange=exchange)
+    pose, cost = _global_merge(res.pose, res.cost, mesh, every)
     return PsoResult(pose=pose, cost=cost)
 
 
@@ -80,14 +120,15 @@ def multi_swarm_rollout(
     score_dtype: str = "f32",
     rng_mode: str = "threefry",
     early_exit: int = 0,
+    mesh=None,
 ) -> PsoResult:
     """Island-model multi-swarm through the rollout kernel: the K swarms as
     one B = K solve, each stencil gathered at its own hypothesis against the
-    one shared snapshot, then the exact-cost merge.  ``score_dtype`` "bf16"
+    one shared snapshot, then the exact-cost merge, across the ranks of
+    ``mesh`` along ``axis_name`` when one is named.  ``score_dtype`` "bf16"
     and ``rng_mode`` "native" take the ``rollout_bf16`` / ``rollout_turbo``
     kernel modes.  Returns the single best (pose [3], exact cost []) in the
     caller's dtype."""
-    _no_mesh(axis_name)
     if score_dtype not in SCORE_DTYPES or rng_mode not in RNG_MODES:
         raise ValueError(f"unknown score_dtype {score_dtype!r} or rng_mode {rng_mode!r}")
     k = guesses.shape[0]
@@ -98,5 +139,5 @@ def multi_swarm_rollout(
     poses, _ = solve_rollout_mode(mode, keys, g, devs, snap, points.expand(k, -1, -1),
                                   valid.expand(k, -1), map_cfg, cfg, early_exit)
     exact = cost_mod.ndt_cost(poses, snap, points, valid, map_cfg)  # [K]
-    best_cost, best_pose = _select_min(exact, poses)
+    best_pose, best_cost = _global_merge(poses, exact, mesh, _axes(axis_name))
     return PsoResult(pose=best_pose.to(guesses.dtype), cost=best_cost.to(guesses.dtype))

@@ -354,12 +354,16 @@ def test_solve_batch_rejects_unknown_and_unported(world):
     cfg = tcfg.PSOConfig(iterations=2, population=8)
     with pytest.raises(ValueError, match="unknown cost_mode"):
         tmesh.solve_batch(*args, TMAP, cfg, "rollout_brf16")
-    with pytest.raises(NotImplementedError, match="E1"):
-        tmesh.make_mesh()
-    with pytest.raises(NotImplementedError, match="E1"):
-        tmesh.make_sharded_solver(None, TMAP, cfg)
-    with pytest.raises(NotImplementedError, match="E1"):
-        tmesh.solve_batch_sharded(None, *args, TMAP, cfg)
+    # The sharded solver, formerly unported (E1): the same refusal, and at
+    # world 1 the sharded call is solve_batch.
+    mesh = tmesh.make_mesh(device="cpu")
+    with pytest.raises(ValueError, match="unknown cost_mode"):
+        tmesh.make_sharded_solver(mesh, TMAP, cfg, "rollout_brf16")
+    with pytest.raises(ValueError, match="shared_map=True"):
+        tmesh.make_sharded_solver(mesh, TMAP, cfg, shared_map=True)(*args)
+    got = tmesh.solve_batch_sharded(mesh, *args, TMAP, cfg)
+    ref = tmesh.solve_batch(*args, TMAP, cfg)
+    assert torch.equal(got.pose, ref.pose) and torch.equal(got.cost, ref.cost)
 
 
 # ------------------------------------------------ one solve per cluster

@@ -213,12 +213,21 @@ def test_fleet_flat_rejects_unsupported_configs(fixture):
                             allow_recovery=True)
 
 
-def test_fleet_sharded_raises_naming_e1():
-    for fn, args in ((tfleet.make_fleet_sharded, (None, _fleet_cfg(tcfg))),
-                     (tfleet.run_offline_fleet_sharded, (None, None, None, None,
-                                                         _fleet_cfg(tcfg)))):
-        with pytest.raises(NotImplementedError, match="E1"):
-            fn(*args)
+def test_fleet_sharded_at_world_one_is_the_fleet(fixture):
+    """At world 1 the sharded fleet is run_offline_fleet, bit for bit, and
+    the sharded runner refuses what the fleet refuses
+    (tests/test_torch_distributed.py runs it over 4 ranks)."""
+    from ndtpso_slam_tpu_torch.parallel import mesh as tmesh
+
+    cfg, mesh = _fleet_cfg(tcfg), tmesh.make_mesh(device="cpu")
+    _, poses, costs = tfleet.run_offline_fleet_sharded(
+        mesh, tslam.init_slam_batch(cfg, fixture["init"], "cpu"), _scans(fixture, steps=4),
+        fixture["keys"], cfg)
+    _, rposes, rcosts = _fleet(cfg, fixture, steps=4)
+    assert torch.equal(poses, rposes) and torch.equal(costs, rcosts)
+    with pytest.raises(ValueError):
+        tfleet.make_fleet_sharded(mesh, dataclasses.replace(cfg, og=tcfg.OccupancyGridConfig(
+            enabled=True)))
 
 
 def _build_inputs(cfg, fx, steps=4):

@@ -30,6 +30,7 @@ from ndtpso_slam_tpu_torch.models import pso as tpso
 from ndtpso_slam_tpu_torch.ops import _build
 from ndtpso_slam_tpu_torch.ops import rollout as tro
 from ndtpso_slam_tpu_torch.ops import rollout_local as trl
+from ndtpso_slam_tpu_torch.parallel import mesh as tmesh
 from ndtpso_slam_tpu_torch.parallel import multi_swarm as tms
 from ndtpso_slam_tpu_torch.utils.state import snapshot_from_numpy
 
@@ -118,13 +119,14 @@ def test_exchange_makes_every_swarm_adopt_the_merged_best(world):
     args = (torch.from_numpy(world["keys"].astype(np.int64)), torch.from_numpy(world["guesses"]),
             torch.from_numpy(np.tile(DEV, (K, 1))), _port_exact_cost(world),
             tcfg.PSOConfig(iterations=4, population=P))
-    merged = tpso.pso_solve_batch(*args, exchange_every=2)
+    every_2, _ = tms.island_exchange(2)
+    merged = tpso.pso_solve_batch(*args, exchange=every_2)
     assert (merged.pose == merged.pose[0]).all() and (merged.cost == merged.cost[0]).all()
     apart = tpso.pso_solve_batch(*args)
     assert len(set(apart.cost.tolist())) > 1
     assert float(merged.cost[0]) <= float(apart.cost.min())
     with pytest.raises(ValueError, match="cannot be combined"):
-        tpso.pso_solve_batch(*args, early_exit=2, exchange_every=2)
+        tpso.pso_solve_batch(*args, early_exit=2, exchange=every_2)
 
 
 def test_multi_swarm_keeps_dtype_and_rejects_the_mesh(world):
@@ -134,10 +136,18 @@ def test_multi_swarm_keeps_dtype_and_rejects_the_mesh(world):
         torch.from_numpy(world["guesses"]).double(), DEV,
         lambda poses, binds: _port_exact_cost(world)(poses.float(), binds).double(), cfg)
     assert res.pose.dtype == torch.float64 and res.cost.dtype == torch.float64
-    for kw in (dict(axis_name="solves"), dict(dcn_axis_name="hosts"), dict(dcn_exchange_every=2)):
-        with pytest.raises(NotImplementedError, match="E1"):
-            tms.multi_swarm_solve(torch.zeros((1, 2), dtype=torch.int64), torch.zeros((1, 3)),
-                                  DEV, lambda p, b: p[..., 0], cfg, **kw)
+    # A merge across ranks needs the rank's mesh; at world 1 it is the
+    # merge over the swarm axis.
+    args = (torch.zeros((1, 2), dtype=torch.int64), torch.zeros((1, 3)), DEV,
+            lambda p, b: p[..., 0], cfg)
+    for kw in (dict(axis_name="solves"), dict(dcn_axis_name="hosts")):
+        with pytest.raises(ValueError, match="needs the rank's mesh"):
+            tms.multi_swarm_solve(*args, **kw)
+    mesh = tmesh.make_mesh(device="cpu")
+    alone = tms.multi_swarm_solve(*args)
+    for kw in (dict(axis_name="solves"), dict(dcn_axis_name="solves", dcn_exchange_every=2)):
+        got = tms.multi_swarm_solve(*args, mesh=mesh, **kw)
+        assert torch.equal(got.pose, alone.pose) and torch.equal(got.cost, alone.cost)
 
 
 # -------------------------------------------------------- multi_swarm_rollout
@@ -211,8 +221,11 @@ def test_multi_swarm_rollout_modes_and_dtype(world):
         assert np.abs(pose[:2] - inv[:2]).max() < 0.07 and abs(pose[2] - inv[2]) < 0.03, kw
     with pytest.raises(ValueError, match="unknown"):
         tms.multi_swarm_rollout(*args, rng_mode="philox")
-    with pytest.raises(NotImplementedError, match="E1"):
+    with pytest.raises(ValueError, match="needs the rank's mesh"):
         tms.multi_swarm_rollout(*args, axis_name="solves")
+    alone = tms.multi_swarm_rollout(*args)
+    got = tms.multi_swarm_rollout(*args, axis_name="solves", mesh=tmesh.make_mesh(device="cpu"))
+    assert torch.equal(got.pose, alone.pose) and torch.equal(got.cost, alone.cost)
 
 
 # ------------------------------------------------------ the cluster chooser
