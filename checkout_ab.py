@@ -3,7 +3,7 @@ stages 1-3, the scan.launch step, K1's host time, the row scatter E4, the
 probes E5 and E6 and the scoring studies E1-E3 of one or more checkouts of
 this repository, on one GPU.
 
-    python checkout_ab.py ROOT [ROOT ...] [--clusters] [--probes] [--studies]
+    python checkout_ab.py ROOT [ROOT ...] [--clusters] [--probes] [--studies] [--step]
 
 Each ROOT is a checkout (its package and its chip_smoke.py).  Each runs in a
 process of its own that imports only from its ROOT, in the order given, so an
@@ -36,7 +36,8 @@ innermost loop holding MUFU.EX2, whose count is the pairs per trip.  Prints
 one JSON line per ROOT, with the card's name and power limit.
 ``--clusters`` adds, for checkouts whose wrappers take ``cluster=``, K1
 turbo and K2 bf16 at B=16 on every cluster size that fits; ``--probes``
-measures E5 and E6 alone.
+measures E5 and E6 alone; ``--step`` stops after phase 4's numbers (step
+latency, K1 at B=1, device kernels per scan).
 
 ``--studies`` measures the kernels of ``csrc/score_variants.cu`` alone, at
 chip_smoke.py's phase 6a-6c shapes: E1's six configurations (B=64, N=384,
@@ -107,7 +108,7 @@ def _loop_mix(sass: str) -> dict:
 def _sass_mixes(lib, _build, kernel) -> dict:
     """The score-loop mix of each instantiation of ``kernel`` (a substring
     of its name) in a built library, by its name from ``kernel`` on."""
-    out = subprocess.run([os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"), "-sass",
+    out = subprocess.run([os.path.join(os.path.dirname(_build._compiler("nvcc")), "cuobjdump"), "-sass",
                           str(lib.path())], capture_output=True, text=True, check=True).stdout
     mixes = {}
     for fn in re.split(r"\n\s*Function : ", out)[1:]:
@@ -355,7 +356,8 @@ def studies(cs, dev, out):
         lambda: rb.rollout_bisect(3, *args, population=4096, iterations=50), 3)
 
 
-def measure(root: str, clusters: bool, probes_only: bool, studies_only: bool = False) -> dict:
+def measure(root: str, clusters: bool, probes_only: bool, studies_only: bool = False,
+            step_only: bool = False) -> dict:
     """The numbers of one checkout, imported from root."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -386,7 +388,9 @@ def measure(root: str, clusters: bool, probes_only: bool, studies_only: bool = F
         _build.build(probes.LIB)
         _e5_e6(cs, dev, out)
         return out
-    _build.build(rl.LIB, ro.LIB, rb.LIB, sc.LIB, rsc.LIB, probes.LIB)  # before any timing
+    # Every library before any timing.
+    _build.build(*((rl.LIB,) if step_only else (rl.LIB, ro.LIB, rb.LIB, sc.LIB, rsc.LIB,
+                                                 probes.LIB)))
     for key in ("scans_s", "step_p50_ms", "step_p95_ms"):
         out[key] = []
     for _ in range(STEP_RUNS):
@@ -405,6 +409,8 @@ def measure(root: str, clusters: bool, probes_only: bool, studies_only: bool = F
         cs.phase_main_profile(node, lg)
     out["step_kernels_per_scan"] = float(
         re.search(r"([\d.]+) device kernels per scan", buf.getvalue()).group(1))
+    if step_only:
+        return out
 
     world = cs.batch_world(256, dev)
     packed = cs._packed(world)
@@ -434,11 +440,11 @@ def measure(root: str, clusters: bool, probes_only: bool, studies_only: bool = F
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    flags = [a for a in argv if a in ("--clusters", "--probes", "--studies")]
+    flags = [a for a in argv if a in ("--clusters", "--probes", "--studies", "--step")]
     argv = [a for a in argv if a not in flags]
     if argv[:1] == ["--one"]:
         print(json.dumps(measure(argv[1], "--clusters" in flags, "--probes" in flags,
-                                 "--studies" in flags)))
+                                 "--studies" in flags, "--step" in flags)))
         return 0
     for root in map(os.path.abspath, argv):
         cmd = [sys.executable, os.path.abspath(__file__), "--one", root]

