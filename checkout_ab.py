@@ -26,8 +26,9 @@ four E5 probes on phase 6e's inputs at C1's batch shape (B=256, N=384)
 and ``torch.sum`` over the same points: CUDA events one cold-L2 call at a
 time (mean and median; the L2 evicted by a read of chip_smoke.py's
 ``FLUSH_BYTES``), device busy and device operations per call, host time; the seven E6 probes on phase 6f's seeded [8, 512] tile,
-device busy and operations per call and host time, beside ``torch.sum``'s
-row sums broadcast and ``einsum``'s column totals.  Kernel times are CUDA
+device busy and operations per call, host time and a CUDA graph's time per
+call (``_graph_us``), beside ``x + C``, ``torch.sum``'s row sums broadcast
+and ``einsum``'s column totals, read the same four ways.  Kernel times are CUDA
 events (chip_smoke.py's
 ``_events_ms``); host times are medians of ``time.perf_counter``.  K3's
 SASS (``cuobjdump -sass`` of the checkout's built library) gives the
@@ -71,6 +72,8 @@ HOST_REPS = 300
 STEP_RUNS = 5
 PROFILE_CALLS = 20
 COLD_REPS = 20
+GRAPH_REPLAYS = 10
+GRAPH_SEGMENTS = 7
 
 
 def _smi() -> str:
@@ -248,10 +251,42 @@ def _split(cs, key, fn, out, flush=None):
     out[f"{key}_host_us"] = _host_us(fn)[0]
 
 
+def _graph_us(fn, calls=PROFILE_CALLS):
+    """µs per call of fn: one CUDA graph that holds ``calls`` calls back to
+    back, warmed, then timed in GRAPH_SEGMENTS segments of GRAPH_REPLAYS
+    replays between CUDA events; the median segment over its calls
+    (chip_smoke.py's ``_graph_ms``, kept here so that the same code times
+    every checkout).  No profiler record is involved, so a dropped one
+    cannot change it."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    pairs = []
+    for _ in range(GRAPH_SEGMENTS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(GRAPH_REPLAYS):
+            graph.replay()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs) / (GRAPH_REPLAYS * calls) * 1e3
+
+
 def _e5_e6(cs, dev, out):
     """The E5 probes at C1's batch shape beside torch.sum over the points,
-    and the E6 probes on the seeded tile beside torch.sum's broadcast row
-    sums and einsum's column totals."""
+    and the E6 probes on the seeded tile beside their library calls: x + C
+    (col3), torch.sum's broadcast row sums (bcast_out) and einsum's column
+    totals (dotgen), each E6 reading also as a CUDA graph's time per call."""
     import torch
 
     from ndtpso_slam_tpu_torch.experiments import io_probe as iop
@@ -268,12 +303,16 @@ def _e5_e6(cs, dev, out):
     _split(cs, "e5_torch_sum", lambda: torch.sum(table, dim=(1, 3)), out, flush)
     del inp, table, flush
     x, xi = mp.inputs(dev, seed=5)
-    for name in probes.MOSAIC_PROBES:
-        arg = xi if name == "threefry" else x
-        _split(cs, f"e6_{name}", lambda: probes.mosaic_probe(name, arg, mp.N), out)
-    _split(cs, "e6_torch_sum", lambda: torch.sum(x, dim=1, keepdim=True).expand_as(x), out)
+    c = torch.tensor([1.0, 2.0] + [3.0] * (probes.ROWS - 2), device=dev)[:, None]
     head = x[:, :mp.N]
-    out["einsum_device_us"] = _device_us(cs, lambda: torch.einsum("rn,rq->q", head, x))
+    e6 = {f"e6_{name}": (lambda name=name: probes.mosaic_probe(
+        name, xi if name == "threefry" else x, mp.N)) for name in probes.MOSAIC_PROBES}
+    e6.update(e6_x_plus_c=lambda: x + c,
+              e6_torch_sum=lambda: torch.sum(x, dim=1, keepdim=True).expand_as(x),
+              e6_einsum=lambda: torch.einsum("rn,rq->q", head, x))
+    for key, fn in e6.items():
+        _split(cs, key, fn, out)
+        out[f"{key}_graph_us"] = _graph_us(fn)
 
 
 def _study_split(cs, key, fn, reps, calls, out):

@@ -258,6 +258,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1768,9 +1769,13 @@ MOSAIC_EXACT = ("col3", "bool11", "threefry")
 COS_RTOL, COS_ATOL = 2.0**-22, 0.0
 # A probe's device time: torch.profiler's device busy time over PROFILE_CALLS
 # calls, beside the CUDA-event time per call (which, for a launch-bound probe,
-# is the wrapper's host time).
+# is the wrapper's host time).  6f also times a CUDA graph of PROFILE_CALLS
+# calls (_graph_ms: the median of GRAPH_SEGMENTS segments of GRAPH_REPLAYS
+# replays), a reading no dropped record changes.
 PROFILE_CALLS = 10
-# Profiled windows _device_ms takes before it gives up on recording a
+GRAPH_REPLAYS = 10
+GRAPH_SEGMENTS = 7
+# Profiled windows _window takes before it gives up on recording a
 # kernel: late in a full run the profiler has recorded none of 10 launches
 # (E5's sten4 at B=256).
 PROFILE_TRIES = 3
@@ -1826,21 +1831,57 @@ def _cold_ms(fn, reps):
     return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
-def _device_ms(fn, kernel=None):
-    """Device busy per call over PROFILE_CALLS calls (torch.profiler); with
-    `kernel`, the mean recorded launch of the kernels whose name holds it (a
-    wrapper that launches that kernel once per call, beside PyTorch ops of
-    its own).  Late in a full run the profiler records only part of the
-    launches (fewer than the wrappers count), so a total over the calls
-    under-counts; a window where it recorded none of them is taken again,
-    up to PROFILE_TRIES windows."""
+def _graph_ms(fn, calls=PROFILE_CALLS):
+    """ms per call of fn: one CUDA graph that holds `calls` calls back to
+    back, replayed GRAPH_REPLAYS times to warm it and then in GRAPH_SEGMENTS
+    segments of GRAPH_REPLAYS replays, each between two CUDA events; the
+    median segment over its calls.  The device's time per call, launch gaps
+    included and no host time, read in every run: no profiler record it
+    could drop.  For measurement only; no path of the package captures a
+    graph."""
+    import torch
+
+    fn()  # a first launch may load its module, which a capture must not
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    pairs = []
+    for _ in range(GRAPH_SEGMENTS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(GRAPH_REPLAYS):
+            graph.replay()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs) / (GRAPH_REPLAYS * calls)
+
+
+def _window(call, kernel=None, wrapper=None):
+    """PROFILE_CALLS calls of `call` in one profiled window: the device
+    operations it recorded, those whose name holds `kernel` (all, without
+    one), their mean busy ms, and the launches `wrapper.LAUNCHES` counted in
+    the window (None without a wrapper).  Late in a full run the profiler
+    records only part of the launches (T1), never more, so a total over the
+    calls would under-count; a window that recorded none of `kernel` is
+    taken again, up to PROFILE_TRIES windows, and then fails."""
     for _ in range(PROFILE_TRIES):
-        n, busy, _ = _profile(lambda: [fn() for _ in range(PROFILE_CALLS)], kernel)
-        if kernel is None:
-            return busy / PROFILE_CALLS
-        if n > 0:
-            return busy / n
-    check(False, f"the profiler recorded no launch of {kernel} in {PROFILE_TRIES} windows")
+        before = wrapper.LAUNCHES if wrapper is not None else 0
+        rows = _trace(lambda: [call() for _ in range(PROFILE_CALLS)])[0]
+        launches = wrapper.LAUNCHES - before if wrapper is not None else None
+        own = [e for e in rows if kernel is None or kernel in e.key]
+        ops, n_own = sum(e.count for e in rows), sum(e.count for e in own)
+        if n_own > 0:
+            break
+    check(n_own > 0, f"the profiler recorded no launch of {kernel or 'any kernel'} in "
+                     f"{PROFILE_TRIES} windows")
+    busy_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                  for e in own)
+    return dict(ops=ops, own=n_own, busy_ms=busy_us / 1e3 / max(n_own, 1), launches=launches)
 
 
 def _time_split(fn, reps, kernels):
@@ -1869,12 +1910,8 @@ def _io_host_split(name, args, got, library):
     from ndtpso_slam_tpu_torch.ops import probes
 
     call = lambda: probes.io_probe(name, *args)
-    for _ in range(PROFILE_TRIES):  # both counts from one window, as it may drop records
-        rows = _trace(lambda: [call() for _ in range(PROFILE_CALLS)])[0]
-        ops = sum(e.count for e in rows)
-        own = sum(e.count for e in rows if "io_kernel_warp" in e.key)
-        if ops > 0:
-            break
+    win = _window(call, "io_kernel_warp")  # both counts from one window, as it may drop records
+    ops, own = win["ops"], win["own"]
     check(0 < ops == own <= PROFILE_CALLS,
           f"io_probe {name}: {ops} device operations in {PROFILE_CALLS} calls, {own} its kernel's")
     out = dict(host_us=_host_us(call), library_host_us=_host_us(library),
@@ -1918,7 +1955,7 @@ def phase_io_probe(dev):
             check(torch.isfinite(got).all() and _sum_ok(got, want, probes.io_magnitudes(name, src)),
                   f"io_probe {name} B={b} N={n}: max |kernel - plain| {err:.3e}")
             plain_ms = _events_ms(lambda: probes.io_probe_reference(name, *args), 3)
-            dev_ms = _device_ms(lambda: probes.io_probe(name, *args), "io_kernel")
+            dev_ms = _window(lambda: probes.io_probe(name, *args), "io_kernel")["busy_ms"]
             table = src.view(b, -1, 8, n)  # the points as one stencil offset
             library = lambda: torch.sum(table, dim=(1, 3))
             lib_ms = _events_ms(library, reps)
@@ -1974,6 +2011,34 @@ def _mosaic_library(name, x, n_dot):
     return None
 
 
+def _mosaic_split(name, arg, n_dot, library):
+    """6f's device readings of one probe on one tile, each from the kernel
+    and, where there is one, its library call in the same way: the CUDA
+    graph's time per call (_graph_ms), and in one profiled window the
+    recorded operations per call and the mean recorded operation's busy
+    time (per call for the kernel, one operation a call; per operation for
+    the library call, `library_device_op_ms`: late in a run the profiler
+    drops records, so a total over the calls would under-count).
+    The kernel's window is checked against its wrapper's count: one launch
+    per call, and at most one recorded operation per call, every one the
+    probe's kernel."""
+    from ndtpso_slam_tpu_torch.ops import probes
+
+    call = lambda: probes.mosaic_probe(name, arg, n_dot)
+    kernel = f"mosaic_kernel_{name}"
+    win = _window(call, kernel, probes.mosaic_probe)
+    check(win["launches"] == PROFILE_CALLS and 0 < win["ops"] == win["own"] <= PROFILE_CALLS,
+          f"mosaic_probe {name}: {win['launches']} launches and {win['ops']} device operations in "
+          f"{PROFILE_CALLS} calls, {win['own']} of them {kernel}")
+    out = dict(graph_ms=_graph_ms(call), device_ms=win["busy_ms"],
+               device_ops=win["ops"] / PROFILE_CALLS)
+    if library is not None:
+        lib = _window(library)
+        out.update(library_graph_ms=_graph_ms(library), library_device_op_ms=lib["busy_ms"],
+                   library_device_ops=lib["ops"] / PROFILE_CALLS)
+    return out
+
+
 def phase_mosaic_probe(dev):
     """6f: experiments/mosaic_probe.py's seven single-op probes on the
     script's [8, 512] tile of ones and on a seeded random tile."""
@@ -1998,32 +2063,43 @@ def phase_mosaic_probe(dev):
             else:
                 ok = _sum_ok(got, want, probes.mosaic_magnitudes(name, x, mp.N))
             check(ok, f"mosaic_probe {name} (seed {seed}): max |kernel - plain| {err:.3e}")
+            words = ""
+            if name == "threefry":  # the counters as int32 and uint32 words: the same bits
+                for w in ((xi - (xi >= 2**31).to(torch.int64) * 2**32).to(torch.int32),
+                          xi.to(torch.uint32)):
+                    check(torch.equal(probes.mosaic_probe(name, w, mp.N), got),
+                          f"mosaic_probe threefry: {w.dtype} words give other bits than int64")
+                words = "; int32 and uint32 words give the same bits"
             plain_ms = _events_ms(lambda: probes.mosaic_probe_reference(name, arg, mp.N), 3)
-            dev_ms = _device_ms(lambda: probes.mosaic_probe(name, arg, mp.N), "mosaic_kernel")
             library = _mosaic_library(name, x, mp.N)
-            lib_ms = lib_dev_ms = None
-            if library is not None:  # timed as the kernel: back to back, and device busy
+            lib_ms = None
+            if library is not None:
                 check(_sum_ok(library(), want, probes.mosaic_magnitudes(name, x, mp.N)),
                       f"mosaic_probe {name}: the library call computes another function")
                 lib_ms = _events_ms(library, mp.REPS)
-                lib_dev_ms = _device_ms(library)
+            split = _mosaic_split(name, arg, mp.N, library)
             nbytes = 2.0 * 4 * x.numel()  # the u32 or f32 tile read, the f32 tile written
             bms, by = bound(nbytes, **_mosaic_ops(name, x.numel(), mp.N))
             key = f"{name}_{'ones' if seed is None else f'seed{seed}'}"
-            variants[key] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                 library_device_ms=lib_dev_ms, max_abs_err=err, bound_ms=bms,
-                                 bound_by=by)
-            lib = ("" if library is None else f", library {lib_ms:.4f} ms (device busy "
-                   f"{lib_dev_ms:.4f} ms per call)")
+            variants[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
+                                 bound_ms=bms, bound_by=by, **split)
+            lib = ""
+            if library is not None:
+                lib = (f"; library {lib_ms:.4f} ms, graph {1e3 * split['library_graph_ms']:.3f} us "
+                       f"per call, device busy {1e3 * split['library_device_op_ms']:.3f} us per "
+                       f"recorded operation, {split['library_device_ops']:.2f} operations per call")
             if name == "bcast_out":
                 host = _host_us(lambda: probes.mosaic_probe(name, arg, mp.N))
                 lib_host = _host_us(library)
                 variants[key].update(host_us=host, library_host_us=lib_host)
                 lib += f"; host {host:.3f} us per call, torch.sum {lib_host:.3f} us"
             print(f"[phase 6f] {key} ([8, {x.shape[1]}]): max |kernel - plain| {err:.3e}"
-                  f"{' (bit-equal)' if name in MOSAIC_EXACT else ''}; kernel {ms:.4f} ms (device "
-                  f"busy {dev_ms:.4f} ms per call), plain {plain_ms:.4f} ms{lib}, bound "
-                  f"{bms:.6f} ms ({by}, {100 * bms / ms:.2f}% of it)")
+                  f"{' (bit-equal)' if name in MOSAIC_EXACT else ''}{words}; kernel {ms:.4f} ms "
+                  f"back to back, graph {1e3 * split['graph_ms']:.3f} us per call, device busy "
+                  f"{1e3 * split['device_ms']:.3f} us per recorded launch, "
+                  f"{split['device_ops']:.2f} operations per call (each mosaic_kernel_{name}); "
+                  f"plain {plain_ms:.4f} ms{lib}; bound {bms:.6f} ms ({by}, "
+                  f"{100 * bms / split['graph_ms']:.2f}% of the graph time)")
     return _study_entry("mosaic_probe", "probes.cu", "experiments/mosaic_probe.py:17", launches,
                         variants, "threefry_seed5")
 

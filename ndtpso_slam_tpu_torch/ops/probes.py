@@ -31,7 +31,8 @@ ROWS = 8  # the TPU tile's sublanes
 LANES = 128  # the TPU output tile's lanes
 N_DOT = 256  # k_dotgen's contraction length (mosaic_probe.py's N)
 THREEFRY_KEY = (123, 456)
-# smem's key dtypes: u32 words per element (an int64's low word comes first).
+# smem's keys' and threefry's counters' dtypes: u32 words per element (an
+# int64's low word comes first).
 KEY_WORDS = {torch.int64: 2, torch.int32: 1, torch.uint32: 1}
 
 
@@ -39,7 +40,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.ndt_io_probe.argtypes = [i, vp, vp, ctypes.c_longlong, vp, i, i, i, vp]
     lib.ndt_io_probe.restype = i
-    lib.ndt_mosaic_probe.argtypes = [i, vp, vp, vp, i, i, i, vp]
+    lib.ndt_mosaic_probe.argtypes = [i, vp, vp, ctypes.c_longlong, vp, i, i, i, vp]
     lib.ndt_mosaic_probe.restype = i
     lib.ndt_mosaic_max_dot_n.argtypes = []
     lib.ndt_mosaic_max_dot_n.restype = i
@@ -143,8 +144,8 @@ def _mosaic_check(name, x, n_dot):
     if x.dim() != 2 or x.shape[0] != ROWS:
         raise ValueError(f"the tile must be [{ROWS}, P], got {tuple(x.shape)}")
     if name == "threefry":
-        if x.dtype.is_floating_point:
-            raise TypeError("threefry takes integer u32 words")
+        if x.dtype not in KEY_WORDS:
+            raise TypeError(f"threefry takes u32 words as int64, int32 or uint32, not {x.dtype}")
     elif x.dtype != torch.float32:
         raise TypeError(f"{name} takes a float32 tile")
     p = x.shape[1]
@@ -206,11 +207,15 @@ def mosaic_probe(name: str, x: torch.Tensor, n_dot: int = N_DOT) -> torch.Tensor
     * ``fori_small``: ``x + a + b + w`` after five steps of
       ``(a + 1, b * 1.01, w * 0.99)`` from (row sums, row 0's sum, 1);
     * ``threefry``: ``f32(int32(x0 >> 8))``, x0 the first word of
-      Threefry-2x32 of the counter (x, 0) under the key (123, 456);
+      Threefry-2x32 of the counter (x, 0) under the key (123, 456); x holds
+      u32 words as int64 (whose low 32 bits are taken) or as int32 / uint32
+      bit patterns, read as given;
     * ``dotgen``: every row ``sum_n (x[:, :n_dot]^T x)[n, :]``;
     * ``bcast_out``: the row sums broadcast along the row.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel, one
+    launch and no other device operation for a contiguous tile (a strided
+    one is made contiguous first)."""
     if x.device.type == "cpu":
         return mosaic_probe_reference(name, x, n_dot)
     if x.device.type != "cuda":
@@ -219,14 +224,13 @@ def mosaic_probe(name: str, x: torch.Tensor, n_dot: int = N_DOT) -> torch.Tensor
     lib = _build.load(LIB)
     if name == "dotgen" and n_dot > lib.ndt_mosaic_max_dot_n():
         raise ValueError(f"dotgen takes n_dot <= {lib.ndt_mosaic_max_dot_n()}, got {n_dot}")
-    if name == "threefry":
-        xf, xi = None, _build.u32_words(x, x.device)
-    else:
-        xf, xi = x.contiguous(), None
+    x = x.contiguous()
+    xf, xi, xi_stride = x.data_ptr(), None, 0
+    if name == "threefry":  # the counters' u32 words, in the caller's dtype
+        xf, xi, xi_stride = None, x.data_ptr(), KEY_WORDS[x.dtype]
     out = torch.empty((ROWS, p), dtype=torch.float32, device=x.device)
     index = x.get_device()
-    err = lib.ndt_mosaic_probe(MOSAIC_PROBES.index(name), None if xf is None else xf.data_ptr(),
-                               None if xi is None else xi.data_ptr(), out.data_ptr(), p,
+    err = lib.ndt_mosaic_probe(MOSAIC_PROBES.index(name), xf, xi, xi_stride, out.data_ptr(), p,
                                n_dot if name == "dotgen" else 1, index, _stream(index))
     _build.check_launch(lib, err, f"mosaic_probe {name}")
     mosaic_probe.LAUNCHES += 1

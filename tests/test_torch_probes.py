@@ -200,18 +200,34 @@ def test_io_warp_row_sum_order_fits_the_sum_tolerance(n, tile):
         assert (np.abs(got - want) <= SUM_RTOL * np.abs(want) + atol).all()
 
 
+def _fori_small_twin(x, vec):
+    """csrc/probes.cu's k_fori_small in float32, step for step: each warp's
+    row sum a and row 0's sum b in warp_row_sum's order, five rounded steps
+    of (a + 1, b * 1.01, w * 0.99) from w = 1, then ((x + a) + b) + w."""
+    sums = _warp_row_sums(x, vec)
+    a, b, w = sums[:, None], np.float32(sums[0]), np.float32(1)
+    for _ in range(5):
+        a, b, w = a + np.float32(1), b * np.float32(1.01), w * np.float32(0.99)
+    return ((x + a) + b) + w
+
+
 @pytest.mark.parametrize("tile", ["ones", "seeded", "cancelling"])
 @pytest.mark.parametrize("p", [512, 1000])
-def test_bcast_out_warp_row_sum_order_fits_the_sum_tolerance(p, tile):
-    """bcast_out's warps, each summing a whole row (float4 loads; scalar on
-    a misaligned tile), against the plain version within the unchanged
-    tolerance."""
+@pytest.mark.parametrize("name", ["bcast_out", "fori_small"])
+def test_bcast_out_warp_row_sum_order_fits_the_sum_tolerance(name, p, tile):
+    """bcast_out's and fori_small's warps, each summing a whole row (and
+    fori_small's also row 0; float4 loads, scalar on a misaligned tile),
+    against the plain version within the unchanged tolerance."""
     x = _rows((8, p), tile, seed=p)
     xt = torch.from_numpy(x)
-    want = probes.mosaic_probe_reference("bcast_out", xt).numpy()
-    atol = SUM_ATOL * probes.mosaic_magnitudes("bcast_out", xt).numpy()
+    want = probes.mosaic_probe_reference(name, xt).numpy()
+    atol = SUM_ATOL * probes.mosaic_magnitudes(name, xt).numpy()
     for vec in (True, False):
-        got = np.broadcast_to(_warp_row_sums(x, vec)[:, None], x.shape)
+        if name == "bcast_out":
+            got = np.broadcast_to(_warp_row_sums(x, vec)[:, None], x.shape)
+        else:
+            got = _fori_small_twin(x, vec)
+        assert got.dtype == np.float32
         assert (np.abs(got - want) <= SUM_RTOL * np.abs(want) + atol).all()
 
 
@@ -284,6 +300,28 @@ def test_mosaic_threefry_is_the_ports_threefry_of_counter_x_0():
     x0, _ = rng.threefry2x32(probes.THREEFRY_KEY, xi, torch.zeros_like(xi))
     want = (x0 >> 8).to(torch.int32).to(torch.float32)
     assert torch.equal(probes.mosaic_probe("threefry", xi), want)
+
+
+# u32 counters >= 2^31 and the corners of the word
+THREEFRY_WORDS = [0, 1, 255, 0x7FFFFFFF, 0x80000000, 0xDEADBEEF, 0xFFFFFFFF, 123456789]
+
+
+@pytest.mark.parametrize("dtype", ["int64", "int32", "uint32", "int16", "uint8"])
+def test_mosaic_threefry_counters_in_each_word_dtype(dtype):
+    """The plain threefry takes the same u32 counters as int64 words (their
+    low 32 bits, also of negative int64s and of int64s above 2^32) and as
+    int32 / uint32 bit patterns, and gives the same bits; a tile of another
+    integer dtype raises TypeError, as the kernel's wrapper does."""
+    w = torch.tensor(THREEFRY_WORDS * 4, dtype=torch.int64).view(8, 4)
+    want = probes.mosaic_probe("threefry", w)
+    if dtype in ("int16", "uint8"):
+        with pytest.raises(TypeError, match="int64, int32 or uint32"):
+            probes.mosaic_probe("threefry", w.to(getattr(torch, dtype)))
+        return
+    tile = {"int64": w - (w >= 2**31).to(torch.int64) * 2**32 + (w % 3 == 0).to(torch.int64) * 2**33,
+            "int32": (w - (w >= 2**31).to(torch.int64) * 2**32).to(torch.int32),
+            "uint32": w.to(torch.uint32)}[dtype]
+    assert torch.equal(probes.mosaic_probe("threefry", tile), want)
 
 
 def test_mosaic_bool11_takes_row_zeros_minimum_and_keeps_nan():
@@ -394,6 +432,29 @@ def _device_ops(fn):
     return {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
+# Profiled windows _one_op_per_call takes before it fails.  Late in a
+# process torch.profiler loses records, whole windows of them (ROADMAP T1:
+# on an H100 a window of 100 calls came back empty a minute into a pytest
+# process), never adds any, so each window holds one call and an empty
+# window is taken again.
+OPS_TRIES = 10
+
+
+def _one_op_per_call(call, wrapper, kernel):
+    """A call of `call` launches once (its wrapper's LAUNCHES) and makes one
+    device operation, `kernel`, in a profiled window of that one call.
+    Every window must record nothing but `kernel`, at most once; one that
+    recorded nothing is taken again, up to OPS_TRIES windows."""
+    for _ in range(OPS_TRIES):
+        before = wrapper.LAUNCHES
+        ops = _device_ops(call)
+        assert wrapper.LAUNCHES == before + 1
+        assert sum(ops.values()) <= 1 and all(kernel in k for k in ops), ops
+        if ops:
+            return
+    pytest.fail(f"torch.profiler recorded no device operation in {OPS_TRIES} windows")
+
+
 def _misaligned(t):
     """A contiguous copy of t that starts 4 bytes past a 16-byte boundary."""
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
@@ -439,10 +500,8 @@ def test_io_warp_kernel_layouts_keys_and_nan_on_gpu(cuda_device, b, n, key_dtype
     for src in (pts, _misaligned(pts)):
         for name in ("min", "smem"):
             args = (src, keys) if name == "smem" else (src,)
-            before = probes.io_probe.LAUNCHES
-            ops = _device_ops(lambda: probes.io_probe(name, *args))
-            assert probes.io_probe.LAUNCHES == before + 1
-            assert sum(ops.values()) == 1 and all("io_kernel_warp" in k for k in ops), ops
+            _one_op_per_call(lambda: probes.io_probe(name, *args), probes.io_probe,
+                             "io_kernel_warp")
             got = probes.io_probe(name, *args)
             want = probes.io_probe_reference(name, *args)
             nan = torch.isnan(want)
@@ -468,10 +527,8 @@ def test_mosaic_bcast_out_kernel_matches_plain_on_gpu(cuda_device, p):
     nan = seeded.clone()
     nan[5, p // 2] = float("nan")
     for x in (ones, seeded, _misaligned(seeded), nan):
-        before = probes.mosaic_probe.LAUNCHES
-        ops = _device_ops(lambda: probes.mosaic_probe("bcast_out", x))
-        assert probes.mosaic_probe.LAUNCHES == before + 1
-        assert sum(ops.values()) == 1 and all("bcast_out" in k for k in ops), ops
+        _one_op_per_call(lambda: probes.mosaic_probe("bcast_out", x), probes.mosaic_probe,
+                         "bcast_out")
         got = probes.mosaic_probe("bcast_out", x)
         want = probes.mosaic_probe_reference("bcast_out", x)
         isnan = torch.isnan(want)
@@ -481,6 +538,64 @@ def test_mosaic_bcast_out_kernel_matches_plain_on_gpu(cuda_device, p):
         assert (((got - want).abs() <= SUM_RTOL * want.abs() + atol) | isnan).all()
         rows = ~isnan.any(dim=1)
         assert (got[rows] == got[rows, :1]).all()
+
+
+TILE_PROBES = ("col3", "bool11", "slice11", "fori_small", "threefry")
+
+
+def _words(xi, dtype):
+    """The u32 counters xi (int64 words below 2^32) in another word dtype:
+    int64 with the high word set on every other element (read as its low
+    word), int32 bit patterns, or uint32."""
+    if dtype == "int64":
+        return xi + (torch.arange(xi.numel(), device=xi.device).view(xi.shape) % 2) * 2**32
+    if dtype == "int32":
+        return (xi - (xi >= 2**31).to(torch.int64) * 2**32).to(torch.int32)
+    return xi.to(torch.uint32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 3, 512, 1000, 4096])
+@pytest.mark.parametrize("name", TILE_PROBES)
+def test_mosaic_tile_probe_kernels_match_plain_on_gpu(cuda_device, name, p):
+    """The five single-warp tile probes at widths below, at and above one
+    warp's 128 columns, P % 4 != 0 (scalar stores), on ones, a seeded tile, a
+    misaligned copy (scalar loads) and a NaN (in row 0 for bool11 and
+    fori_small, whose reductions read it; elsewhere for the others);
+    threefry on its counters as int64, int32 and uint32 words, also
+    misaligned.  Each call is one launch and one device operation, the
+    probe's kernel; col3, bool11 and threefry bit-equal to the plain
+    version."""
+    (ones, ones_i), (seeded, words) = tmo.inputs(cuda_device, p=p), tmo.inputs(cuda_device, p=p, seed=p)
+    if name == "threefry":
+        tiles = [ones_i, words, _misaligned(words)]
+        tiles += [_words(words, d) for d in ("int64", "int32", "uint32")]
+        tiles += [_misaligned(_words(words, "int32"))]
+    else:
+        nan = seeded.clone()
+        nan[(0, 0) if name in ("bool11", "fori_small") else (5, p // 2)] = float("nan")
+        tiles = [ones, seeded, _misaligned(seeded), nan]
+    for x in tiles:
+        _one_op_per_call(lambda: probes.mosaic_probe(name, x), probes.mosaic_probe,
+                         f"mosaic_kernel_{name}")
+        got = probes.mosaic_probe(name, x)
+        want = probes.mosaic_probe_reference(name, x)
+        isnan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), isnan)
+        assert isnan.sum() == (0 if x.dtype != torch.float32 or not torch.isnan(x).any()
+                               else isnan.numel() if name in ("bool11", "fori_small") else 1)
+        got, want = got[~isnan], want[~isnan]
+        if name in EXACT_MOSAIC:
+            assert torch.equal(got, want)
+        elif name == "slice11":
+            torch.testing.assert_close(got, want, rtol=COS_RTOL, atol=COS_ATOL)
+        else:
+            atol = SUM_ATOL * probes.mosaic_magnitudes(name, x)[~isnan]
+            assert ((got - want).abs() <= SUM_RTOL * want.abs() + atol).all()
+    if name == "threefry":  # every word dtype gives the int64 words' bits
+        want = probes.mosaic_probe(name, words)
+        for d in ("int64", "int32", "uint32"):
+            assert torch.equal(probes.mosaic_probe(name, _words(words, d)), want)
 
 
 @pytest.mark.gpu
