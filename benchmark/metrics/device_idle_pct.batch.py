@@ -1,0 +1,5 @@
+"""device_idle_pct.batch: the share of the batch matcher's untraced window in
+which no device operation (kernel, copy or set) runs, in percent: the
+device-only trace's busy time over the same scans or calls untraced."""
+
+from ndtbench.trace import idle_pct as read  # noqa: F401

@@ -1,0 +1,354 @@
+"""How ``correct`` is decided: the plain reference over what the timed path
+produced.
+
+The node (``judge_node``).  The SLAM node serves one pose per scan.  The
+reference reads the served poses (the outputs it judges) and nothing else
+of the program: it builds its own map from the scans and the served poses,
+scan by scan, in float64, and at sampled steps solves the step itself from
+the served history (the previous served pose as the guess, twice the last
+served motion as the deviation, the node's key of that step), with the
+stencil cost of the node's cost mode.  Compared, each against its limit:
+
+* ``pose_xy_p75_m``, ``pose_th_p75_rad``: the 75th percentile over the
+  sampled steps of the gap between the served pose and the reference's
+  solve (a percentile: a PSO near-tie now and then sends a sound solve
+  elsewhere along a flat direction of the cost, so the widest gap swings);
+* ``parted_pct``: the share of the sampled steps whose served pose parts
+  from the reference's solve by more than the configuration's ``parted``
+  distances (``xy_m``, ``th_rad``), in percent: near-ties part a few
+  samples in a hundred, so a fault in one step of a few shows here where
+  the percentiles stay at rounding;
+* ``score_gap_p75``: the 75th percentile of the amount by which the served
+  pose's mean NDT score per valid beam, on the reference's map, lies below
+  the reference's solve's;
+* ``fitness_gap``: the widest gap between the node's exact rescore (its
+  fitness) and the reference's score of the served pose;
+* ``map_off_pct``: the share of the cells built on either side whose built
+  flag, world mean (by more than 1e-4 m) or inverse covariance (by more
+  than 1% of its norm) differ between the node's final map and the
+  reference's;
+* ``raster_off_pct``: the share of the occupancy sub-cells written on either
+  side whose int8 values differ by more than 1 (``p·100`` truncates, so a
+  p one rounding apart can land on either side of an integer).
+
+Batch matching (``judge_batch``).  Each sampled solve is solved again by the
+reference in float64 from the same inputs (the benchmark's own maps and
+points, the same key, guess and deviation) with the frozen cost.  Compared
+are the 75th percentiles over the sampled solves of the pose gap
+(``pose_xy_p75_m``), of the gap between the two poses' stencil scores per
+valid point (``score_gap_p75``), and of the gap between the solve's
+reported cost and the reference's (``cost_gap_p75``), and the share of the
+sampled solves whose pose parts from the reference's beyond ``parted``
+(``parted_pct``).
+
+With ``witness`` a judge also looks at each parted sample (``readings.py``
+asks for it; runs do not): the reference solved again in float32, and, for
+the node, in float64 from its inputs rounded to float32; for batch
+matching, the first iteration at which the program's global best (the
+program rerun with each iteration budget) parts from the reference's, and
+both picks' float64 costs there against the float32 resolution.
+
+A judge takes a candidate: the program's outputs, or, for the precision
+control, a stand-in computed in a lower precision on the same inputs.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from ndtbench import reference as R
+
+MEAN_TOL_M = 1e-4
+ICOV_RTOL = 1e-2
+RASTER_TOL = 1
+
+
+def checks(numbers: Dict[str, float], limits: Dict[str, float]) -> Dict[str, dict]:
+    """Each number beside its limit; a missing limit fails."""
+    return {k: {"value": float(v), "limit": limits.get(k, float("nan"))}
+            for k, v in numbers.items()}
+
+
+def passed(chk: Dict[str, dict]) -> bool:
+    return all(math.isfinite(c["value"]) and c["value"] <= c["limit"] for c in chk.values())
+
+
+def parted_pct(dxy, dth, parted: dict) -> float:
+    """The share, in percent, of samples whose pose gap exceeds ``parted``
+    ({"xy_m", "th_rad"})."""
+    off = (np.asarray(dxy) > parted["xy_m"]) | (np.asarray(dth) > parted["th_rad"])
+    return 100.0 * float(off.mean()) if off.size else 0.0
+
+
+def sample_rows(rng: np.random.Generator, candidates, count: int):
+    """``count`` of ``candidates`` drawn without replacement, sorted."""
+    candidates = np.asarray(candidates)
+    count = min(count, len(candidates))
+    return np.sort(rng.choice(candidates, size=count, replace=False))
+
+
+# --------------------------------------------------------------------- node
+
+
+class NodeReplay:
+    """The reference node at ``dtype``: its map (and raster) built from the
+    scans and the poses it is given, and its own solve of a step."""
+
+    def __init__(self, node_cfg: dict, dtype, device):
+        self.cfg, self.dtype, self.device = node_cfg, dtype, device
+        self.grid = R.Grid(float(node_cfg["frame_size_m"]), float(node_cfg["cell_side_m"]))
+        self.map = R.NdtMap(self.grid, int(node_cfg["window_slots"]), dtype, device)
+        self.raster = (R.Raster(self.grid, float(node_cfg["og_cell_size_m"]), device)
+                       if node_cfg.get("build_og") else None)
+        self.prev = torch.zeros(0, dtype=torch.int64, device=device)
+
+    def ingest(self, pose, pts, valid):
+        ids = self.map.add(R.transform(pts, pose), valid)
+        self.map.build(torch.cat([ids, self.prev]))
+        if self.raster is not None:
+            self.raster.update(self.map, ids)
+        self.prev = ids
+
+
+def node_solve(cfg: dict, grid: R.Grid, snap, key, guess, deviation, pts, valid):
+    """The node's align at one step: a PSO solve of the stencil cost
+    anchored at the guess, at the guess's dtype."""
+    keys = torch.tensor([key], dtype=torch.int64, device=guess.device)
+    cost = R.stencil_cost_fn(guess[None], snap, grid, pts[None], valid[None], False)
+    pose, _ = R.pso(keys, guess[None], deviation[None], cost, int(cfg["pso_population"]),
+                    int(cfg["pso_iterations"]))
+    return pose[0]
+
+
+def node_fitness(grid: R.Grid, snap, pose, pts, valid):
+    """The exact rescore as the node reports it: the mean NDT score per valid
+    beam at ``pose``."""
+    cost = R.exact_cost(pose, snap, grid, pts, valid)
+    return -cost / valid.sum().clamp(min=1).to(cost.dtype)
+
+
+def _deviation(served, t, dtype, device):
+    """NDTFrame::align's deviation at step t: the cold-start one for the
+    first two aligns, then twice the last served motion."""
+    if t < 3:
+        return torch.tensor(R.FIRST_DEVIATION, dtype=dtype, device=device)
+    return torch.abs(2.0 * (served[t - 1] - served[t - 2])).to(dtype)
+
+
+def judge_node(lap, node_cfg: dict, parted: dict, seed: int, served_poses: np.ndarray,
+               fitness: np.ndarray, final_map: Optional[dict], raster: Optional[np.ndarray],
+               sample, device, control: bool = False, witness: bool = False) -> dict:
+    """The node's numbers (module docstring) over steps ``sample``.
+    served_poses [T, 3], fitness [T]: what the node served; final_map
+    {"mean": [C, 2] world, "icov": [C, 3], "built": [C]} and ``raster``
+    [H, W] int8 after step T - 1.  With ``control`` the candidate is not
+    the node but the reference in bfloat16 fed the same served history: its
+    solve and rescore on the reference's map rounded to bfloat16, its map
+    and raster built in bfloat16 (the served poses and the fitness are read
+    only for that history)."""
+    f64, lo = torch.float64, torch.bfloat16
+    ref = NodeReplay(node_cfg, f64, device)
+    low = NodeReplay(node_cfg, lo, device) if control else None
+    grid = ref.grid
+    b = lap.beams
+    pts, valid = R.scan_points(lap.ranges, b.angle_min, b.angle_increment, b.range_max,
+                               int(node_cfg["max_beams"]), node_cfg.get("mount_trans"), f64,
+                               device, frame_half=float(node_cfg["frame_size_m"]) / 2)
+    served = torch.as_tensor(served_poses, dtype=f64, device=device)
+    init = torch.tensor(node_cfg.get("init_pose", (0.0, 0.0, 0.0)), dtype=f64, device=device)
+    n_lap = lap.ranges.shape[0]
+    want = set(int(t) for t in sample)
+    gaps = {"fitness_gap": 0.0}
+    samples, witnesses = [], []
+    for t in range(served.shape[0]):
+        p, v = pts[t % n_lap], valid[t % n_lap]
+        if t in want:
+            snap = ref.map.snapshot()
+            key = R.node_key(seed, t)
+            mine = init if t == 0 else node_solve(node_cfg, grid, snap, key, served[t - 1],
+                                                  _deviation(served, t, f64, device), p, v)
+            if control:
+                snap_lo = tuple(x.to(lo) if x.is_floating_point() else x for x in snap)
+                cand = init.to(lo) if t == 0 else node_solve(
+                    node_cfg, grid, snap_lo, key, served[t - 1].to(lo),
+                    _deviation(served, t, lo, device), p.to(lo), v)
+                cand_fit = float(node_fitness(grid, snap_lo, cand, p.to(lo), v))
+                cand = cand.to(f64)
+            else:
+                cand, cand_fit = served[t], float(fitness[t])
+            fit_cand = float(node_fitness(grid, snap, cand, p, v))
+            fit_mine = float(node_fitness(grid, snap, mine, p, v))
+            row = (t, float(torch.hypot(cand[0] - mine[0], cand[1] - mine[1])),
+                   float(torch.abs(cand[2] - mine[2])), max(0.0, fit_mine - fit_cand),
+                   abs(cand_fit - fit_cand))
+            samples.append(row)
+            if witness and not control and t > 0 and parted_pct([row[1]], [row[2]], parted):
+                witnesses.append(_node_witness(node_cfg, grid, snap, key, served, t, p, v, mine,
+                                               cand))
+            gaps["fitness_gap"] = (max(gaps["fitness_gap"], row[4]) if math.isfinite(row[4])
+                                   else float("nan"))
+        ref.ingest(served[t], p, v)
+        if low is not None:
+            low.ingest(served[t].to(lo), p.to(lo), v)
+    if low is not None:
+        mean, icov, built = (x.to(f64) if x.is_floating_point() else x
+                             for x in low.map.snapshot())
+        final_map = {"mean": mean, "icov": icov, "built": built}
+        raster = None if low.raster is None else low.raster.raster()
+    for key, col in (("pose_xy_p75_m", 1), ("pose_th_p75_rad", 2), ("score_gap_p75", 3)):
+        gaps[key] = float(np.quantile([s[col] for s in samples], 0.75))
+    gaps["parted_pct"] = parted_pct([s[1] for s in samples], [s[2] for s in samples], parted)
+    if final_map is not None:
+        gaps["map_off_pct"] = map_off_pct(ref.map, final_map, device)
+    if ref.raster is not None and raster is not None:
+        gaps["raster_off_pct"] = raster_off_pct(ref.raster.raster(), raster, device)
+    return {"numbers": gaps, "samples": samples, "witnesses": witnesses}
+
+
+def _node_witness(cfg, grid, snap, key, served, t, pts, valid, mine, cand) -> dict:
+    """A parted node sample solved again by the reference in float32, and in
+    float64 from its inputs (map, scan, guess, deviation) rounded to
+    float32: each solve's distance from the float64 solve and from the
+    served pose, and each pose's mean score per beam on the float64 map."""
+    f64, f32 = torch.float64, torch.float32
+    dev = _deviation(served, t, f64, served.device)
+    out = {"step": t}
+    for name, back in (("f32", f32), ("f64_of_f32_inputs", f64)):
+        conv = lambda x: x.to(f32).to(back) if x.is_floating_point() else x
+        pose = node_solve(cfg, grid, tuple(conv(x) for x in snap), key, conv(served[t - 1]),
+                          conv(dev), conv(pts), valid).to(f64)
+        out[name] = _pose_report(grid, snap, pose, mine, cand, pts, valid)
+    out["served"] = _pose_report(grid, snap, cand, mine, cand, pts, valid)
+    out["f64_fitness"] = float(node_fitness(grid, snap, mine, pts, valid))
+    return out
+
+
+def _pose_report(grid, snap, pose, mine, cand, pts, valid) -> dict:
+    gap = lambda a, b: [float(torch.hypot(a[0] - b[0], a[1] - b[1])), float(torch.abs(a[2] - b[2]))]
+    return {"pose": pose.tolist(), "from_f64": gap(pose, mine), "from_served": gap(pose, cand),
+            "fitness": float(node_fitness(grid, snap, pose, pts, valid))}
+
+
+def map_off_pct(ref_map: R.NdtMap, got: dict, device) -> float:
+    mean, icov, built = ref_map.snapshot()
+    g_mean = torch.as_tensor(got["mean"], device=device).to(torch.float64)
+    g_icov = torch.as_tensor(got["icov"], device=device).to(torch.float64)
+    g_built = torch.as_tensor(got["built"], device=device).to(torch.bool)
+    either = built | g_built
+    both = built & g_built
+    dm = torch.linalg.vector_norm(g_mean - mean, dim=-1)
+    di = torch.linalg.vector_norm(g_icov - icov, dim=-1)
+    ni = torch.linalg.vector_norm(icov, dim=-1)
+    ok = both & (dm <= MEAN_TOL_M) & (di <= ICOV_RTOL * ni)
+    n = int(either.sum())
+    return 100.0 * float((either & ~ok).sum()) / max(n, 1)
+
+
+def raster_off_pct(ref_og: torch.Tensor, got, device) -> float:
+    got = torch.as_tensor(np.asarray(got.cpu() if torch.is_tensor(got) else got),
+                          device=device).to(torch.int16)
+    ref = ref_og.to(torch.int16)
+    written = (ref != 0) | (got != 0)
+    off = written & ((ref - got).abs() > RASTER_TOL)
+    return 100.0 * float(off.sum()) / max(int(written.sum()), 1)
+
+
+# -------------------------------------------------------------------- batch
+
+
+def judge_batch(inputs: dict, sampled: list, cand_pose: np.ndarray, cand_cost: np.ndarray,
+                map_cfg: dict, pso_cfg: dict, parted: dict, device, block: int = 8,
+                budgets: Optional[Callable[[int], list]] = None) -> dict:
+    """The batch numbers over ``sampled`` solves, [(pool row, key words)],
+    whose candidate answers are cand_pose [S, 3] and cand_cost [S].
+    inputs: the pool on the device: "mean" [pool, C, 2], "icov", "built",
+    "points" [pool, N, 2], "valid", "guess" [pool, 3], "dev" [pool, 3].
+    With ``budgets`` (sample j -> the program's [(pose [3], cost)] after
+    1 .. I iterations) each parted sample is looked at (module docstring)."""
+    f64 = torch.float64
+    grid = R.Grid(float(map_cfg["size_m"]), float(map_cfg["cell_side_m"]))
+    rows = torch.tensor([r for r, _ in sampled], dtype=torch.int64, device=device)
+    keys = torch.tensor([k for _, k in sampled], dtype=torch.int64, device=device) & R.M32
+    cand = torch.as_tensor(np.asarray(cand_pose), dtype=f64, device=device)
+    poses, costs, scores = [], [], []
+    for s in range(0, len(sampled), block):
+        r = rows[s:s + block]
+        snaps, pts, valid, guess, dev = _pairs(inputs, r, f64)
+        cost = R.frozen_cost_fn(guess, snaps, grid, pts, valid, True)
+        p, c = R.pso(keys[s:s + block], guess, dev, cost, int(pso_cfg["population"]),
+                     int(pso_cfg["iterations"]))
+        stencil = R.stencil_cost_fn(guess, snaps, grid, pts, valid, True)
+        both = torch.stack([p, cand[s:s + block]], 1)  # [b, 2, 3]
+        scores.append(stencil(both, None))
+        poses.append(p)
+        costs.append(c)
+    pose = torch.cat(poses).cpu().numpy()
+    cost = torch.cat(costs).cpu().numpy()
+    sc = torch.cat(scores).cpu().numpy()
+    n_valid = inputs["valid"][rows].sum(-1).clamp(min=1).cpu().numpy()
+    dxy = np.hypot(cand_pose[:, 0] - pose[:, 0], cand_pose[:, 1] - pose[:, 1])
+    dth = np.abs(cand_pose[:, 2] - pose[:, 2])
+    dscore = np.abs(sc[:, 1] - sc[:, 0]) / n_valid
+    dc = np.abs(cand_cost - cost) / n_valid
+    p75 = lambda x: float(np.quantile(x, 0.75))
+    numbers = {"pose_xy_p75_m": p75(dxy), "score_gap_p75": p75(dscore), "cost_gap_p75": p75(dc),
+               "parted_pct": parted_pct(dxy, dth, parted)}
+    witnesses = []
+    if budgets is not None:
+        for j in np.flatnonzero((dxy > parted["xy_m"]) | (dth > parted["th_rad"])):
+            witnesses.append(_batch_witness(inputs, grid, pso_cfg, parted, rows[j:j + 1],
+                                            keys[j:j + 1], budgets(int(j)), cand_pose[j],
+                                            pose[j]))
+    return {"numbers": numbers, "witnesses": witnesses,
+            "samples": [(int(r), float(a), float(t), float(b), float(c))
+                        for (r, _), a, t, b, c in zip(sampled, dxy, dth, dscore, dc)]}
+
+
+def _pairs(inputs, r, dtype):
+    get = lambda name: inputs[name][r].to(dtype) if inputs[name].is_floating_point() \
+        else inputs[name][r]
+    return ((get("mean"), get("icov"), get("built")), get("points"), get("valid"), get("guess"),
+            get("dev"))
+
+
+def _batch_witness(inputs, grid, pso_cfg, parted, row, key, prog, served, ref_pose) -> dict:
+    """One parted batch sample: the reference again in float32, and the
+    first iteration at which the program's global best parts from the
+    float64 reference's, with both picks' float64 costs under the
+    reference's binding pose there, the program's float32 cost of its pick,
+    and the gap between the two float64 costs against the resolution (the
+    program's cost of its pick less its float64 cost)."""
+    f64, f32 = torch.float64, torch.float32
+    pop, iters = int(pso_cfg["population"]), int(pso_cfg["iterations"])
+    snaps, pts, valid, guess, dev = _pairs(inputs, row, f64)
+    cost = R.frozen_cost_fn(guess, snaps, grid, pts, valid, True)
+    track = []
+    R.pso(key, guess, dev, cost, pop, iters, record=track)
+    s32, p32, v32, g32, d32 = _pairs(inputs, row, f32)
+    low, _ = R.pso(key, g32, d32, R.frozen_cost_fn(g32, s32, grid, p32, v32, True), pop, iters)
+    low = low[0].to(f64).cpu().numpy()
+    gap = lambda a, b: [float(np.hypot(a[0] - b[0], a[1] - b[1])), float(abs(a[2] - b[2]))]
+    out = {"pool_row": int(row[0]), "served": np.asarray(served).tolist(),
+           "f64": np.asarray(ref_pose).tolist(), "f32": low.tolist(),
+           "f32_from_f64": gap(low, ref_pose), "f32_from_served": gap(low, served),
+           "program_rerun_equals_served": bool(np.array_equal(np.asarray(prog[-1][0]), served))}
+    for k in range(1, iters + 1):
+        a = np.asarray(prog[k - 1][0], np.float64)
+        b = track[k][0][0].cpu().numpy()
+        dxy, dth = gap(a, b)
+        if dxy <= parted["xy_m"] and dth <= parted["th_rad"]:
+            continue
+        bind = track[k - 1][0]
+        at = lambda pose: torch.as_tensor(pose, dtype=f64, device=bind.device)[None, None]
+        c = lambda pose: float(cost(at(pose), bind)[0, 0])
+        ca, cb = c(a), c(b)
+        out.update(iteration=k, program_pick=a.tolist(), reference_pick=b.tolist(),
+                   f64_cost_program_pick=ca, f64_cost_reference_pick=cb,
+                   program_cost=float(prog[k - 1][1]), gap=ca - cb,
+                   resolution=abs(float(prog[k - 1][1]) - ca))
+        break
+    return out

@@ -1,0 +1,38 @@
+"""Small sizes of the benchmark's cells for the CPU tests: the same code
+paths as the cells, with a small map, swarm, scan and window."""
+
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+BENCH = HERE.parent
+ROOT = BENCH.parent
+for p in (str(BENCH), str(ROOT)):
+    if p not in sys.path:
+        sys.path.insert(0, p)
+
+NODE = {"config": {"node": {"frame_size_m": 40.0, "map_size_m": 40.0, "window_slots": 8,
+                            "pso_population": 50, "pso_iterations": 30, "max_beams": 96}},
+        "traffic": {"world_size_m": 12.0, "n_boxes": 3, "radius_m": 2.0, "n_beams": 90,
+                    "sample_steps": 8, "trace_steps": 4}}
+BATCH = {"config": {"pso": {"population": 64, "iterations": 5}, "max_beams": 96},
+         "traffic": {"batch": 8, "pool": 16, "worlds": 2, "n_beams": 90, "sample_solves": 8,
+                     "trace_calls": 2, "warmup_calls": 1}}
+CELLS = {"scan_launch.patrol": NODE, "batch_match.b256": BATCH, "batch_match.b16": BATCH}
+SEED = 3000000007  # above 2**31, as the driver's seeds are
+
+
+def run(workload, control=False, trace=False, seconds=0.5, seed=SEED, more=None):
+    """One run of ``workload`` at its small size on the CPU, without the
+    look for a chip: the result line's dict.  ``more`` overrides the small
+    size further."""
+    import time
+
+    import torch
+
+    from ndtbench import cell, harness
+
+    torch.manual_seed(0)
+    return harness.run_cell(workload, seed, seconds, trace, torch.device("cpu"),
+                            time.perf_counter(), overrides=cell._merge(CELLS[workload], more),
+                            control=control)

@@ -1,0 +1,33 @@
+"""On the card: each cell's command runs end to end, prints its result as
+the last line of standard output with ``correct`` true, and the checks as
+the last lines of standard error.  Marked ``gpu``; skips without a card."""
+
+import json
+import subprocess
+import sys
+
+import pytest
+
+from bench_small import ROOT
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("workload,trace", [("scan_launch.patrol", 0), ("batch_match.b256", 1),
+                                            ("batch_match.b16", 0)])
+def test_cell_on_the_card(workload, trace):
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    out = subprocess.run([sys.executable, "benchmark/run.py", "--workload", workload,
+                          "--seed", "3000000021", "--seconds", "2", "--trace", str(trace)],
+                         cwd=str(ROOT), capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stderr[-4000:]
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["correct"], result["checks"]
+    assert result["device"]["platform"] == "gpu" and result["device"]["count"] == 1
+    if workload == "scan_launch.patrol":
+        # CUPTI's busy time over the window: positive, under 1.5 ms a scan
+        # (the traced windows read 0.88-0.90 ms).
+        assert 0 < result["metrics"]["card_ms_per_scan"]["value"] < 1.5
+    assert out.stderr.strip().splitlines()[-1].startswith("check ")
