@@ -57,6 +57,7 @@ from ndtpso_slam_tpu_torch.models.scan import Scan
 from ndtpso_slam_tpu_torch.ops import rng
 from ndtpso_slam_tpu_torch.ops.geometry import cell_index, transform_points
 from ndtpso_slam_tpu_torch.ops.rollout import solve_rollout_mode
+from ndtpso_slam_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -201,9 +202,10 @@ def align(
             key, guess, deviation, make_cost_fn(snap, scan, cfg, guess), cfg.pso
         )
     if cfg.cost_mode != "exact":
-        exact = cost_mod.ndt_cost(
-            result.pose[None, :], snap, scan.points, scan.valid, cfg.map
-        )[0]
+        with profiling.span("step.rescore"):
+            exact = cost_mod.ndt_cost(
+                result.pose[None, :], snap, scan.points, scan.valid, cfg.map
+            )[0]
         result = PsoResult(pose=result.pose, cost=exact)
     new_astate = AlignState(
         prev_pose=result.pose,
@@ -368,7 +370,8 @@ def slam_step(
         astate, pose = state.align, state.pose
         cost = cost_mod.ndt_cost(pose[None, :], snap, scan.points, scan.valid, cfg.map)[0]
     else:
-        astate, result = align(key, state.align, snap, scan, state.pose, cfg)
+        with profiling.span("step.align"):
+            astate, result = align(key, state.align, snap, scan, state.pose, cfg)
         pose, cost = result.pose, result.cost.to(dtype)
     n_valid = torch.sum(scan.valid)
     fitness = -cost / torch.clamp(n_valid, min=1).to(dtype)
@@ -403,21 +406,24 @@ def slam_step(
         ingest_valid = scan.valid & ~degraded
         recoveries += int(accepted)
 
-    wpts = transform_points(scan.points, pose)
-    idx, inb = cell_index(
-        wpts, size_m=cfg.map.size_m, cell_side_m=cfg.map.cell_side_m,
-        cells_per_side=cfg.map.cells_per_side,
-    )
-    ids = torch.where(ingest_valid & inb, idx, cfg.map.num_cells).to(torch.int32)
-    new_map = ndt_map.add_points(state.map, cfg.map, wpts, ingest_valid)
+    with profiling.span("step.map_update"):
+        wpts = transform_points(scan.points, pose)
+        idx, inb = cell_index(
+            wpts, size_m=cfg.map.size_m, cell_side_m=cfg.map.cell_side_m,
+            cells_per_side=cfg.map.cells_per_side,
+        )
+        ids = torch.where(ingest_valid & inb, idx, cfg.map.num_cells).to(torch.int32)
+        new_map = ndt_map.add_points(state.map, cfg.map, wpts, ingest_valid)
     # A scan changes only the cells it binned into, plus last scan's cells
     # (post-rotation slot eviction): build exactly those.
-    new_map = ndt_map.build_touched(new_map, cfg.map, torch.cat([ids, state.prev_ids]))
+    with profiling.span("step.map_build"):
+        new_map = ndt_map.build_touched(new_map, cfg.map, torch.cat([ids, state.prev_ids]))
     og = state.og
     if og is not None:
         # Only this scan's cells, as the JAX step refreshes them: a cell
         # rebuilt for last scan's ids alone keeps its stale block (ROADMAP R1).
-        og = occupancy.og_update_incremental(og, new_map, cfg.map, cfg.og, ids)
+        with profiling.span("step.raster"):
+            og = occupancy.og_update_incremental(og, new_map, cfg.map, cfg.og, ids)
     new_state = SlamState(
         map=new_map, align=astate, og=og, pose=pose, step=state.step + 1,
         fitness=fitness, recoveries=recoveries, prev_ids=ids,

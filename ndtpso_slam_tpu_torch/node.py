@@ -200,19 +200,22 @@ class SlamNode:
     ) -> np.ndarray:
         """One scan callback (``scan_matcher_``, ``ndtpso_slam_node.cpp:177-244``).
         Returns the estimated [3] pose."""
-        with self.meter.tick():
-            sc = scan_mod.load_laser(
-                np.asarray(ranges, np.float32), angle_min, angle_increment, range_max,
-                self.slam_cfg.scan, self.slam_cfg.map, mount=self._mount,
-                device=self.device,
-            )
+        with self.meter.tick(), profiling.span("node.scan", self.state.step):
+            with profiling.span("step.load"):
+                sc = scan_mod.load_laser(
+                    np.asarray(ranges, np.float32), angle_min, angle_increment, range_max,
+                    self.slam_cfg.scan, self.slam_cfg.map, mount=self._mount,
+                    device=self.device,
+                )
             # Key from the state's step counter, so a restored state resumes
             # the same random stream.
             key = rng.derive_key(self._key, self.state.step)
             self.state, pose, _cost = slam.slam_step(self.state, sc, key, self.slam_cfg)
-            pose_np = pose.cpu().numpy().astype(np.float64)
-            self.global_map.add_scan(sc.points, sc.valid, pose_np)
-            self.global_map.add_pose(timestamp, pose_np, odom)
+            with profiling.span("node.pose_fetch"):  # the host waits for the device
+                pose_np = pose.cpu().numpy().astype(np.float64)
+            with profiling.span("node.export"):
+                self.global_map.add_scan(sc.points, sc.valid, pose_np)
+                self.global_map.add_pose(timestamp, pose_np, odom)
         for cb in self.pose_callbacks:
             cb(timestamp, pose_np)
         if self.cfg.ring_rows > 0 and not self._warned_ring_overflow:

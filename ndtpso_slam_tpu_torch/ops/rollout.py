@@ -42,6 +42,7 @@ from ndtpso_slam_tpu_torch.ops.rollout_local import (
     pso_rollout_local,
     rank_sliced_sum,
 )
+from ndtpso_slam_tpu_torch.utils import profiling
 
 EXP_MODES = ("exp", "exp2", "approx")
 SCORE_DTYPES = ("f32", "bf16")
@@ -350,7 +351,8 @@ def pso_rollout(
         return pso_rollout_reference(*args, cluster=cluster or 1)
     if sten.device.type != "cuda":
         raise ValueError(f"unsupported device {sten.device}")
-    return _launch(*args, cluster)
+    with profiling.span("k2.launch"):
+        return _launch(*args, cluster)
 
 
 pso_rollout.LAUNCHES = 0
@@ -377,13 +379,16 @@ def solve_rollout_mode(
     if not cost_mode.startswith("rollout"):
         raise ValueError(f"{cost_mode!r} is not a rollout cost mode")
     radius = cost_mod.DEFAULT_STENCIL_RADIUS
-    nbrs = cost_mod.bind_neighborhood(guesses, snaps, points, valid, map_cfg, radius)
+    with profiling.span("solve.bind"):
+        nbrs = cost_mod.bind_neighborhood(guesses, snaps, points, valid, map_cfg, radius)
     rng_mode = "native" if "turbo" in cost_mode else "threefry"
     if "local" in cost_mode:
-        sten, pts = pack_rollout_local_inputs(nbrs, points)
+        with profiling.span("solve.pack"):
+            sten, pts = pack_rollout_local_inputs(nbrs, points)
         return pso_rollout_local(keys, guesses, deviations, sten, pts, pso_cfg, map_cfg,
                                  radius, early_exit, rng_mode)
-    sten, pts = pack_rollout_inputs(nbrs, points)
+    with profiling.span("solve.pack"):
+        sten, pts = pack_rollout_inputs(nbrs, points)
     return pso_rollout(keys, guesses, deviations, sten, pts, pso_cfg, map_cfg, radius,
                        score_dtype="bf16" if "bf16" in cost_mode else "f32",
                        rng_mode=rng_mode, early_exit=early_exit)

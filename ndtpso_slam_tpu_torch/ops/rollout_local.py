@@ -36,6 +36,7 @@ from ndtpso_slam_tpu_torch.models import cost as cost_mod
 from ndtpso_slam_tpu_torch.models.pso import pso_solve
 from ndtpso_slam_tpu_torch.ops import _build
 from ndtpso_slam_tpu_torch.ops.geometry import cell_coords, transform_points
+from ndtpso_slam_tpu_torch.utils import profiling
 
 # Penalty of an unbuilt stencil lane in the packed table (the TPU kernel adds
 # it to the quadratic form so the score is exp(-BIG/2) == 0).
@@ -294,8 +295,9 @@ def pso_rollout_local(
         )
     if sten.device.type != "cuda":
         raise ValueError(f"unsupported device {sten.device}")
-    return _launch(keys, guesses, deviations, sten, pts, cfg, map_cfg, radius, early_exit,
-                   rng_mode, exp_mode, cluster)
+    with profiling.span("k1.launch"):
+        return _launch(keys, guesses, deviations, sten, pts, cfg, map_cfg, radius, early_exit,
+                       rng_mode, exp_mode, cluster)
 
 
 pso_rollout_local.LAUNCHES = 0

@@ -33,6 +33,8 @@ row keeps its own key.
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 from ndtpso_slam_tpu_torch.config import MapConfig, PSOConfig
@@ -41,8 +43,10 @@ from ndtpso_slam_tpu_torch.models.ndt_map import MapSnapshot
 from ndtpso_slam_tpu_torch.models.pso import OPTIMIZERS, PsoResult, pso_solve_batch
 from ndtpso_slam_tpu_torch.ops.rollout import solve_rollout_mode
 from ndtpso_slam_tpu_torch.parallel import runtime
+from ndtpso_slam_tpu_torch.utils import profiling
 
 SOLVE_AXIS = "solves"
+_CALLS = itertools.count()
 STENCIL_RADIUS = cost_mod.DEFAULT_STENCIL_RADIUS
 
 # Every cost/solver mode solve_batch dispatches on; an unknown string is
@@ -161,36 +165,39 @@ def solve_batch(
             "optimizer='glir' runs through the per-solve cost modes only "
             "(the rollout/fused kernels implement the deployed PSO update rule)"
         )
-    if cost_mode.startswith("rollout"):
-        pose, cost = solve_rollout_mode(cost_mode, keys, guesses, deviations, snaps, points,
-                                        valid, map_cfg, pso_cfg, early_exit)
-        return PsoResult(pose=pose.to(guesses.dtype), cost=cost)
-    if cost_mode == "fast_fused":
+    # The call's root span; its request id counts the process's calls.
+    with profiling.span("batch.call", next(_CALLS)):
+        if cost_mode.startswith("rollout"):
+            pose, cost = solve_rollout_mode(cost_mode, keys, guesses, deviations, snaps, points,
+                                            valid, map_cfg, pso_cfg, early_exit)
+            return PsoResult(pose=pose.to(guesses.dtype), cost=cost)
+        if cost_mode == "fast_fused":
 
-        def batched_cost(poses, binds):  # [B, P, 3], [B, 3] -> [B, P]
-            bound = cost_mod.bind_points(binds, snaps, points, valid, map_cfg)
-            return cost_mod.bound_cost_fused(poses, bound)
+            def batched_cost(poses, binds):  # [B, P, 3], [B, 3] -> [B, P]
+                bound = cost_mod.bind_points(binds, snaps, points, valid, map_cfg)
+                return cost_mod.bound_cost_fused(poses, bound)
 
-        return pso_solve_batch(keys, guesses, deviations, batched_cost, pso_cfg)
-    if cost_mode == "fast_local_fused":
-        nbrs = cost_mod.bind_neighborhood(guesses, snaps, points, valid, map_cfg, STENCIL_RADIUS)
+            return pso_solve_batch(keys, guesses, deviations, batched_cost, pso_cfg)
+        if cost_mode == "fast_local_fused":
+            nbrs = cost_mod.bind_neighborhood(guesses, snaps, points, valid, map_cfg,
+                                              STENCIL_RADIUS)
 
-        def batched_cost(poses, binds):
-            bound = cost_mod.bind_points_local(binds, nbrs, points, map_cfg)
-            return cost_mod.bound_cost_fused(poses, bound)
+            def batched_cost(poses, binds):
+                bound = cost_mod.bind_points_local(binds, nbrs, points, map_cfg)
+                return cost_mod.bound_cost_fused(poses, bound)
 
-        return pso_solve_batch(keys, guesses, deviations, batched_cost, pso_cfg)
-    keys = keys.to(torch.int64).cpu() & 0xFFFFFFFF
-    shared = snaps.built.dim() == 1
-    results = [
-        _solve_one(
-            (int(keys[b, 0]), int(keys[b, 1])), guesses[b], deviations[b],
-            snaps if shared else MapSnapshot(mean=snaps.mean[b], inv_cov=snaps.inv_cov[b],
-                                             built=snaps.built[b]),
-            points[b], valid[b], map_cfg, pso_cfg, cost_mode, optimizer,
+            return pso_solve_batch(keys, guesses, deviations, batched_cost, pso_cfg)
+        keys = keys.to(torch.int64).cpu() & 0xFFFFFFFF
+        shared = snaps.built.dim() == 1
+        results = [
+            _solve_one(
+                (int(keys[b, 0]), int(keys[b, 1])), guesses[b], deviations[b],
+                snaps if shared else MapSnapshot(mean=snaps.mean[b], inv_cov=snaps.inv_cov[b],
+                                                 built=snaps.built[b]),
+                points[b], valid[b], map_cfg, pso_cfg, cost_mode, optimizer,
+            )
+            for b in range(guesses.shape[0])
+        ]
+        return PsoResult(
+            pose=torch.stack([r.pose for r in results]), cost=torch.stack([r.cost for r in results])
         )
-        for b in range(guesses.shape[0])
-    ]
-    return PsoResult(
-        pose=torch.stack([r.pose for r in results]), cost=torch.stack([r.cost for r in results])
-    )
