@@ -5,7 +5,7 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. Device and build: requires a CUDA device, prints the card's name and power
-   limit (nvidia-smi), builds the seven kernel libraries from csrc/ (one nvcc
+   limit (nvidia-smi), builds the eight kernel libraries from csrc/ (one nvcc
    each, all at once) and prints what ptxas reports of each kernel
    instantiation (its name, registers, spills).
 
@@ -21,14 +21,16 @@ their kernels-line entries carry the C each ran with (`cluster`).
    cells), 100-slot window, 50 particles x 30 iterations, 384 padded beams,
    over the 50-scan synthetic log of bench.py's SLAM workload; the per-robot
    trajectory gate of bench.py (mean error < 0.35 m, max < 0.7 m) and the
-   kernel's launch count; the same log with the occupancy raster on
+   kernels' launch counts (K1 once an aligned scan, the map update's
+   ndt_ingest once a scan); the same log with the occupancy raster on
    (build_og, 3000 x 3000 int8): the step p50/p95 beside a raster-off run
    just before it, the launch count, the poses bit-equal to the raster-off
-   run (both under deterministic algorithms: the map's scatter-adds use
-   atomics), and where the incremental raster differs from a dense pass
+   run (both under deterministic algorithms), and where the incremental
+   raster differs from a dense pass
    over the final map (ROADMAP R1: the count of sub-cells and blocks, the
-   largest difference); then the kernel against its plain version, both
-   timed, on the inputs of the solve that run would make next; then the
+   largest difference); then K1 against its plain version, both timed, on
+   the inputs of the solve that run would make next, and ndt_ingest against
+   its plain version on the map update it would make next; then the
    log's last 10 scans fed again under torch.profiler (kernels per scan,
    device busy share, K1's share).
 5. Batch scan matching (parallel/mesh.py:solve_batch), bench.py's ``batch``
@@ -351,12 +353,12 @@ def phase_device():
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
-    from ndtpso_slam_tpu_torch.ops import (_build, probes, rollout, rollout_bisect, rollout_local,
-                                           row_scatter, score, score_variants)
+    from ndtpso_slam_tpu_torch.ops import (_build, ndt_ingest, probes, rollout, rollout_bisect,
+                                           rollout_local, row_scatter, score, score_variants)
 
     t0 = time.perf_counter()
     paths = _build.build(rollout_local.LIB, rollout.LIB, score.LIB, score_variants.LIB,
-                         row_scatter.LIB, probes.LIB, rollout_bisect.LIB)
+                         row_scatter.LIB, probes.LIB, rollout_bisect.LIB, ndt_ingest.LIB)
     print(f"[phase 1] built {', '.join(p.name for p in paths)} in "
           f"{time.perf_counter() - t0:.2f} s")
     for path in paths:
@@ -565,11 +567,15 @@ def phase_main():
 
     lg = synthetic.make_log(seed=2, n_scans=50, n_beams=360, world_size=50.0)
     node, step_s, total, launches, peak = _run_main(lg, build_og=False)
+    counts = _read_counts()
     poses = np.stack(node.poses)
     err = np.hypot(poses[:, 0] - lg.poses[:, 0], poses[:, 1] - lg.poses[:, 1])
     check(np.isfinite(poses).all() and poses.shape == (50, 3), "poses not finite [50, 3]")
     aligns = len(lg.ranges) - 1  # the first scan is not aligned
     check(launches == aligns, f"kernel launches {launches} != aligns {aligns}")
+    # The map update: one ndt_ingest launch a step, the first scan's too.
+    want = {n: {"rollout_local": aligns, "ndt_ingest": len(lg.ranges)}.get(n, 0) for n in counts}
+    check(counts == want, f"launches {counts}, expected {want}")
     check(err.mean() < GATE_MEAN_M and err.max() < GATE_MAX_M,
           f"trajectory gate: mean {err.mean():.4f} m, max {err.max():.4f} m")
     p50, p95 = _percentiles(step_s)
@@ -577,8 +583,9 @@ def phase_main():
           f"mean err {err.mean():.4f} m, max {err.max():.4f} m; "
           f"{len(lg.ranges) / total:.2f} scans/s; aligned-step latency "
           f"p50 {p50:.3f} ms p95 {p95:.3f} ms; "
-          f"peak device memory {peak / 2**30:.3f} GiB; kernel launches {launches}")
-    return node, lg, launches, p50
+          f"peak device memory {peak / 2**30:.3f} GiB; kernel launches {launches}, ndt_ingest "
+          f"{counts['ndt_ingest']}")
+    return node, lg, launches, p50, counts["ndt_ingest"]
 
 
 # Phase 4's raster runs: off, on, on, off, off, on; the step p50/p95 of
@@ -607,9 +614,9 @@ def phase_main_og(node_off, lg):
         del run
     poses_on, poses_off = np.stack(node.poses), np.stack(node_off.poses)
     moved = float(np.abs(poses_on - poses_off).max())
-    # The map's scatter-adds use atomics on CUDA, so two runs may differ in
-    # the last bits of a cell's sums whatever the raster does; the bit-for-bit
-    # comparison runs both with deterministic algorithms.
+    # The map update is one kernel that adds in index order, but other ops
+    # of the step may use atomics on CUDA; the bit-for-bit comparison runs
+    # both with deterministic algorithms.
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         det = [np.stack(_run_main(lg, build_og=og)[0].poses) for og in (False, True)]
@@ -716,6 +723,101 @@ def phase_main_kernel(node, lg, tag="[phase 4]"):
           f"CTAs), plain {plain_ms:.3f} ms, "
           f"bound {bnd[0]:.6f} ms ({bnd[1]}; one solve, latency-bound)")
     return max(dpose, dcost), ms, plain_ms, bnd, cluster, args
+
+
+# The map update's float fields in the cells where the kernel and the
+# deterministic index_add_ sum in other orders: the largest gap, relative
+# to the field's largest magnitude there (1.536e-06 on phase 4's update).
+INGEST_REL_GAP = 1e-5
+
+
+def phase_ingest(node, lg, launches, tag="[phase 4]"):
+    """The map update's kernel (ops/ndt_ingest.py) against its plain version
+    (ndt_map.ingest_scan_reference, deterministic) on the update the main
+    path would run next: the final map, pose and previous ids, the last
+    scan.  Ids, integer and bool fields equal in every real row, float
+    fields bit for bit in every real row whose open-slot sums both add in
+    one order, and within INGEST_REL_GAP, finite where the plain version's
+    are, in the others (tests/test_torch_ingest.py: the deterministic
+    index_add_ sums a cell's beams of the scan before it adds them); then
+    timed.  ``launches``: the kernel's launches over phase 4's run.
+    Returns the kernels-line entry."""
+    import dataclasses
+
+    import torch
+
+    from ndtpso_slam_tpu_torch.models import ndt_map
+    from ndtpso_slam_tpu_torch.models import scan as scan_mod
+    from ndtpso_slam_tpu_torch.ops import ndt_ingest as ni
+
+    cfg, st = node.slam_cfg, node.state
+    c = cfg.map.num_cells
+    scan = scan_mod.load_laser(lg.ranges[-1], lg.angle_min, lg.angle_increment, lg.range_max,
+                               cfg.scan, cfg.map)
+    args = (cfg.map, st.pose, scan.points, scan.valid, st.prev_ids)
+    clone = lambda: ndt_map.NdtMapState(**{f.name: getattr(st.map, f.name).clone()
+                                           for f in dataclasses.fields(st.map)})
+    a, b = clone(), clone()
+    before = ni.ndt_ingest.LAUNCHES
+    ids = ndt_map.ingest_scan(a, *args)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ids_b = ndt_map.ingest_scan_reference(b, *args)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(ni.ndt_ingest.LAUNCHES - before == 1, "ndt_ingest: not one launch for the update")
+    check(torch.equal(ids, ids_b), "ndt_ingest: ids differ from the plain version's")
+    hits = torch.bincount(ids.long(), minlength=c + 1)[:c]
+    reordered = (st.map.cur_count[:c] > 0) & (hits >= 2)
+    # Where the orders differ: each float field's largest gap, and that gap
+    # relative to the field's largest magnitude over those cells.
+    worst, worst_abs, differ, finite = 0.0, 0.0, [], []
+    for name, _, _ in ni.FIELDS:
+        x, y = getattr(a, name)[:c], getattr(b, name)[:c]
+        if x.is_floating_point():
+            xr, yr = x[reordered], y[reordered]
+            ok = torch.isfinite(yr)
+            if not torch.equal(torch.isfinite(xr), ok):
+                finite.append(name)
+            if bool(ok.any()):
+                gap = float((xr[ok] - yr[ok]).abs().max())
+                worst_abs = max(worst_abs, gap)
+                worst = max(worst, gap / (float(yr[ok].abs().max()) or 1.0))
+            x, y = x[~reordered].view(torch.int32), y[~reordered].view(torch.int32)
+        if not torch.equal(x, y):
+            differ.append(name)
+    check(not differ, f"ndt_ingest: fields differ from the plain version's: {differ}")
+    check(not finite, f"ndt_ingest: finite on one side only, in the re-ordered cells: {finite}")
+    check(worst <= INGEST_REL_GAP, f"ndt_ingest: re-ordered cells {worst:.3e} of a field's "
+          f"magnitude from the plain version's (limit {INGEST_REL_GAP:.0e})")
+    del a, b
+    t = clone()
+    kernel = _time_split(lambda: ndt_map.ingest_scan(t, *args), 50, 1)
+    graph_ms = _graph_ms(lambda: ndt_map.ingest_scan(t, *args))
+    plain_ms = _events_ms(lambda: ndt_map.ingest_scan_reference(t, *args), 20)
+    del t
+    n = scan.points.shape[0]
+    d_ingest = int(torch.unique(ids[ids < c]).numel())
+    both = torch.cat([ids, st.prev_ids])
+    d_build = int(torch.unique(both[both < c]).numel())
+    # The beams' points, masks and both id lists; each built cell's fields
+    # read once (15 floats, 5 ints) and written once (20 floats, 5 ints, a
+    # bool); each hit cell's created and built flags.
+    item = scan.points.element_size()
+    bms, by = bound(n * (2 * item + 1 + 4 + 4) + d_build * (35 * item + 10 * 4 + 1) + 2 * d_ingest)
+    ms = kernel["ms"]
+    print(f"{tag} ndt_ingest vs plain on the next update (N={n}, {d_ingest} cells hit, {d_build} "
+          f"built, {int(reordered.sum())} summed in the CPU's order only, largest gap there "
+          f"{worst_abs:.3e}, {worst:.3e} of a field's magnitude, limit {INGEST_REL_GAP:.0e}; "
+          f"{launches} launches over phase 4's 50 steps): kernel {ms:.4f} ms back to back "
+          f"(events), device busy {kernel['device_ms']:.4f} ms in {kernel['device_ops']:.1f} operations a "
+          f"call, graph "
+          f"{graph_ms:.4f} ms a call, host {kernel['host_us']:.1f} us; plain {plain_ms:.3f} ms; "
+          f"bound {bms:.6f} ms ({by}, {100 * bms / kernel['device_ms']:.2f}% of device busy)")
+    return _entry("ndt_ingest", SRC + "ndt_ingest.cu",
+                  "none: the JAX package's map update (ndtpso_slam_tpu/models/ndt_map.py), XLA",
+                  launches, worst_abs, ms, plain_ms, (bms, by), device_ms=kernel["device_ms"],
+                  graph_ms=graph_ms, host_us=kernel["host_us"], reordered_rel_gap=worst)
 
 
 def _evaluations(population, live_iterations):
@@ -1007,6 +1109,7 @@ def _packed(world, local=False):
 
 
 def _launch_counts():
+    from ndtpso_slam_tpu_torch.ops import ndt_ingest as ni
     from ndtpso_slam_tpu_torch.ops import probes
     from ndtpso_slam_tpu_torch.ops import rollout as ro
     from ndtpso_slam_tpu_torch.ops import rollout_bisect as rb
@@ -1019,7 +1122,7 @@ def _launch_counts():
                 score=sc.fused_bound_scores, score_variants=sv.score_variants,
                 score_block=sv.score_block, row_scatter=rsc.row_scatter,
                 io_probe=probes.io_probe, mosaic_probe=probes.mosaic_probe,
-                rollout_bisect=rb.rollout_bisect)
+                rollout_bisect=rb.rollout_bisect, ndt_ingest=ni.ndt_ingest)
 
 
 def _reset_counts():
@@ -2629,7 +2732,7 @@ def phase_recovery(dev, window_slots=100):
     counts = _read_counts()
     peak = torch.cuda.max_memory_allocated() - base
     evals = 2 * (rc.pso.iterations + 2)
-    want = {n: {"rollout_local": 1, "score": evals}.get(n, 0) for n in counts}
+    want = {n: {"rollout_local": 1, "score": evals, "ndt_ingest": 1}.get(n, 0) for n in counts}
     check(counts == want, f"kidnapped step: launches {counts}, expected {want}")
     err = _kidnap_err(pose, kid_pose)
     check(new.recoveries == 1 and all(e < g for e, g in zip(err, KIDNAP_GATE)),
@@ -2874,7 +2977,8 @@ def phase_glir(real_lg, world):
     tail in both packages (PERF.md §7: the JAX package 0.15-0.89 m over
     8 seeds on the CPU, the port 0.16-1.42 m; on the card 0.16-0.95 m over
     16 runs with the map's atomic scatter-adds, once 5.20 m).  So the gated
-    run is the reproducible one: the map's scatter-adds in a fixed order."""
+    run is the reproducible one: the map update is one kernel that adds in
+    index order (one launch a scan), the other ops deterministic."""
     import torch
 
     from ndtpso_slam_tpu_torch.node import SlamNode
@@ -2891,12 +2995,14 @@ def phase_glir(real_lg, world):
     counts = _read_counts()
     err = _errors(node, gt)
     check(err.max() < GLIR_GATE_MAX_M, f"8e: GLIR node max error {err.max():.4f} m")
-    check(not any(counts.values()), f"8e: GLIR node launched {counts}")
+    want = {n: len(real_lg.ranges) * int(n == "ndt_ingest") for n in counts}
+    check(counts == want, f"8e: GLIR node launched {counts}, expected {want}")
     p50, p95 = _percentiles(step_s)
     print(f"[phase 8e] GLIR node, local_exact, realistic.bag, deterministic algorithms: max err "
           f"{err.max():.4f} m (gate {GLIR_GATE_MAX_M} m), mean "
           f"{err.mean():.4f} m; aligned-step latency p50 {p50:.3f} ms p95 {p95:.3f} ms; no "
-          f"kernel launched (plain PyTorch)")
+          f"solver kernel launched (plain PyTorch), the map update {counts['ndt_ingest']} "
+          f"ndt_ingest launches")
 
     sub = _first(world, BATCH_SMALL)
     cfg = sub["pso_cfg"]
@@ -4430,7 +4536,7 @@ def phase_golden(dev):
           f"{build_s:.2f} s")
 
     poses, gold, truth, counts = _golden_log_run(torch.float32, "rollout_local", dev)
-    want = {n: 11 * int(n == "rollout_local") for n in counts}
+    want = {n: {"rollout_local": 11, "ndt_ingest": 12}.get(n, 0) for n in counts}
     check(counts == want, f"11b: rollout_local over 12 scans launched {counts}, expected {want}")
     eng, ref = _accuracy("11b rollout_local f32", poses, gold, truth)
     per_scan = np.abs(poses - gold).max(1)
@@ -4440,7 +4546,8 @@ def phase_golden(dev):
           f"{[float(f'{v:.3e}') for v in per_scan]}")
 
     poses, gold, truth, counts = _golden_log_run(torch.float64, "exact", dev)
-    check(not any(counts.values()), f"11c: the exact float64 loop launched {counts}")
+    want = {n: 12 * int(n == "ndt_ingest") for n in counts}
+    check(counts == want, f"11c: the exact float64 loop launched {counts}, expected {want}")
     eng, ref = _accuracy("11c exact f64", poses, gold, truth)
     per_scan = np.abs(poses - gold).max(1)
     differs = np.nonzero(per_scan > 0)[0]
@@ -4464,9 +4571,10 @@ def main() -> int:
     phase_device()
     worst = phase_kernel()
     phase_paths()
-    node, lg, launches, step_p50 = phase_main()
+    node, lg, launches, step_p50, ingest_launches = phase_main()
     phase_main_og(node, lg)
     worst_main, ms, plain_ms, bnd, cluster, main_inputs = phase_main_kernel(node, lg)
+    ingest = phase_ingest(node, lg, ingest_launches)
     phase_main_profile(node, lg)
     world = batch_world(BATCH, torch.device("cuda"))
     worst_small = phase_batch_kernels(world)
@@ -4477,7 +4585,7 @@ def main() -> int:
     tpu = "ndtpso_slam_tpu/ops/"
     kernels = [_entry("rollout_local", SRC + "rollout_local.cu", tpu + "pallas_rollout.py:551",
                       launches, max(worst, worst_main, worst_small["rollout_local"]), ms, plain_ms,
-                      bnd, cluster=cluster)]
+                      bnd, cluster=cluster), ingest]
     for name, source, replaces in (
         ("rollout_local_turbo", "rollout_local.cu", "pallas_rollout.py:618"),
         ("rollout", "rollout.cu", "pallas_rollout.py:111"),

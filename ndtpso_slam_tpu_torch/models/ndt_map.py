@@ -38,7 +38,10 @@ uses atomics, so the open-slot sums of a cell that several beams of one scan
 hit can differ in their last bits from run to run, unless
 ``torch.use_deterministic_algorithms`` is on (``chip_smoke.py`` compares
 runs bit for bit that way); otherwise the card is held to the trajectory
-gate, not to bit equality.
+gate, not to bit equality.  The step's update, :func:`ingest_scan`, takes
+one kernel on CUDA with a dense ring (``ops/ndt_ingest.py``) that adds in
+index order, so the solo step's map is the same on every run; the fleet and
+the sparse ring still take the PyTorch ops.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ import torch
 from ndtpso_slam_tpu_torch.config import MapConfig, resolve_device
 from ndtpso_slam_tpu_torch.ops import gaussian
 from ndtpso_slam_tpu_torch.ops.geometry import cell_index, transform_points
+from ndtpso_slam_tpu_torch.ops.ndt_ingest import ndt_ingest
 
 
 @dataclasses.dataclass
@@ -397,6 +401,44 @@ def build_touched_stacked(
     f["slot_count"][ring_idx, slot] = new.old_count
     f["slot_cov"][ring_idx, slot] = new.old_cov
     return state
+
+
+def ingest_scan(
+    state: NdtMapState, cfg: MapConfig, pose: torch.Tensor, points: torch.Tensor,
+    valid: torch.Tensor, prev_ids: torch.Tensor,
+) -> torch.Tensor:
+    """A scan step's map update, in place: the scan ``points`` [N, 2] (mask
+    ``valid`` [N]) transformed by ``pose`` [3] and added to the map, then
+    the cells it touched and those of ``prev_ids`` [N] (the previous scan's
+    ids) built.  Returns the scan's cell ids [N] int32, ``num_cells`` where
+    a beam was dropped (invalid or out of frame).
+
+    On a CUDA device with a dense ring, one launch of
+    ``ops/ndt_ingest.py``'s kernel (which raises on more beams than its
+    ``MAX_BEAMS``); elsewhere the PyTorch ops of
+    :func:`ingest_scan_reference`.  The kernel adds in index order, so its
+    map equals theirs on the CPU, and on CUDA under deterministic
+    algorithms, in every real row (the spare row aside)."""
+    if points.is_cuda and cfg.ring_rows == 0:
+        return ndt_ingest(state, cfg, pose, points, valid, prev_ids)
+    return ingest_scan_reference(state, cfg, pose, points, valid, prev_ids)
+
+
+def ingest_scan_reference(
+    state: NdtMapState, cfg: MapConfig, pose: torch.Tensor, points: torch.Tensor,
+    valid: torch.Tensor, prev_ids: torch.Tensor,
+) -> torch.Tensor:
+    """:func:`ingest_scan` in PyTorch ops, on any device and ring."""
+    wpts = transform_points(points, pose)
+    idx, inb = cell_index(
+        wpts, size_m=cfg.size_m, cell_side_m=cfg.cell_side_m, cells_per_side=cfg.cells_per_side,
+    )
+    ids = torch.where(valid & inb, idx, cfg.num_cells).to(torch.int32)
+    add_points(state, cfg, wpts, valid)
+    # A scan changes only the cells it binned into, plus last scan's cells
+    # (post-rotation slot eviction): build exactly those.
+    build_touched(state, cfg, torch.cat([ids, prev_ids]))
+    return ids
 
 
 def build(state: NdtMapState, cfg: MapConfig) -> NdtMapState:

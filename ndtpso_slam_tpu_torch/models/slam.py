@@ -55,7 +55,6 @@ from ndtpso_slam_tpu_torch.models import ndt_map, occupancy
 from ndtpso_slam_tpu_torch.models.pso import OPTIMIZERS, PsoResult, _select_min, pso_solve_batch
 from ndtpso_slam_tpu_torch.models.scan import Scan
 from ndtpso_slam_tpu_torch.ops import rng
-from ndtpso_slam_tpu_torch.ops.geometry import cell_index, transform_points
 from ndtpso_slam_tpu_torch.ops.rollout import solve_rollout_mode
 from ndtpso_slam_tpu_torch.utils import profiling
 
@@ -407,25 +406,16 @@ def slam_step(
         recoveries += int(accepted)
 
     with profiling.span("step.map_update"):
-        wpts = transform_points(scan.points, pose)
-        idx, inb = cell_index(
-            wpts, size_m=cfg.map.size_m, cell_side_m=cfg.map.cell_side_m,
-            cells_per_side=cfg.map.cells_per_side,
-        )
-        ids = torch.where(ingest_valid & inb, idx, cfg.map.num_cells).to(torch.int32)
-        new_map = ndt_map.add_points(state.map, cfg.map, wpts, ingest_valid)
-    # A scan changes only the cells it binned into, plus last scan's cells
-    # (post-rotation slot eviction): build exactly those.
-    with profiling.span("step.map_build"):
-        new_map = ndt_map.build_touched(new_map, cfg.map, torch.cat([ids, state.prev_ids]))
+        ids = ndt_map.ingest_scan(state.map, cfg.map, pose, scan.points, ingest_valid,
+                                  state.prev_ids)
     og = state.og
     if og is not None:
         # Only this scan's cells, as the JAX step refreshes them: a cell
         # rebuilt for last scan's ids alone keeps its stale block (ROADMAP R1).
         with profiling.span("step.raster"):
-            og = occupancy.og_update_incremental(og, new_map, cfg.map, cfg.og, ids)
+            og = occupancy.og_update_incremental(og, state.map, cfg.map, cfg.og, ids)
     new_state = SlamState(
-        map=new_map, align=astate, og=og, pose=pose, step=state.step + 1,
+        map=state.map, align=astate, og=og, pose=pose, step=state.step + 1,
         fitness=fitness, recoveries=recoveries, prev_ids=ids,
     )
     return new_state, pose, cost

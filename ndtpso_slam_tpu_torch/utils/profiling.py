@@ -8,7 +8,7 @@ reference's average publish rate and instantaneous matching rate
 Spans.  :func:`span` marks one phase of the program at a layer boundary
 (``node.scan`` > ``step.load``, ``step.align`` > ``solve.bind``,
 ``solve.pack``, ``k1.launch`` / ``k2.launch``, ``step.rescore``; then
-``step.map_update``, ``step.map_build``, ``step.raster``,
+``step.map_update`` (the map's update and build), ``step.raster``,
 ``node.pose_fetch``, ``node.export``; ``batch.call`` > ``solve.bind``,
 ``solve.pack``, ``k2.launch``).  Recording is on while a ``torch.profiler``
 session runs, or inside :func:`recording`; a span then enters a

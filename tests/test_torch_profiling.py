@@ -31,8 +31,8 @@ NODE = dict(frame_size_m=36.0, cell_side_m=0.5, window_slots=4, max_beams=192,
 # left out: the CPU runs K1's plain version.
 STEP = {"step.load": "node.scan", "step.align": "node.scan", "solve.bind": "step.align",
         "solve.pack": "step.align", "step.rescore": "step.align",
-        "step.map_update": "node.scan", "step.map_build": "node.scan",
-        "step.raster": "node.scan", "node.pose_fetch": "node.scan", "node.export": "node.scan"}
+        "step.map_update": "node.scan", "step.raster": "node.scan",
+        "node.pose_fetch": "node.scan", "node.export": "node.scan"}
 FIRST = {k: v for k, v in STEP.items() if k not in ("step.align", "solve.bind", "solve.pack",
                                                     "step.rescore")}
 
