@@ -5,7 +5,12 @@ configuration's ``entry``:
   one after another, a closed loop of one caller: each scan goes in when the
   last pose has come back to the host.  Set-up makes one lap of the traffic
   and runs ``warmup_laps`` laps of it through the node (which builds the
-  map); the window replays the lap, with the timestamps running on.
+  map); the window plays the lap on as the traffic's schedule says (in
+  order, or with kidnaps: ``synthetic.NODE_TRAFFIC``), with the timestamps
+  running on.  A node with recovery on takes the configuration's
+  ``recovery`` block, which must state the node's own parameters
+  (:func:`recovery_block`); the run records the steps at which the node
+  accepted a relocalization.
 * ``solve_batch``: a batch matcher that keeps one ``solve_batch`` call in
   flight and needs each call's poses and costs on the host.  Set-up makes
   the pool of scan pairs, builds each world's map (the benchmark's own
@@ -51,9 +56,14 @@ class Run:
     setup_s: float
     view: Optional[T.View]
     memory_peak: int
-    judge: Callable[..., dict]  # (control, witness) -> {"numbers", "samples", "witnesses"}
+    judge: Callable[..., dict]  # (control, witness) -> {"numbers", "samples", "witnesses", ...}
     per_unit: int  # solves per call (1 for the node)
     card_busy_s: Optional[float] = None  # the card's busy time over the whole window
+    # The node's: {"kidnaps", "accepted"}: the window's steps at which the
+    # log jumped and at which the node accepted a relocalization;
+    # "timed_from": the step whose host time is durations[0].  None for
+    # batch matching.
+    events: Optional[dict] = None
 
 
 def sync(device):
@@ -89,24 +99,64 @@ def timed(step: Callable[[], None], seconds: float):
 # --------------------------------------------------------------------- node
 
 
+# The fields of the node's RecoveryConfig that a configuration's ``recovery``
+# block states and the judge's reference reads.
+RECOVERY_KEYS = ("fitness_threshold", "accept_fitness", "spread", "grid", "grid_sigma",
+                 "refine_sigma", "grid_beam_stride", "k_hypotheses", "deviation", "patch_cells",
+                 "pso", "min_valid_beams")
+
+
+def recovery_block(config: dict, rc) -> Optional[dict]:
+    """The configuration's ``recovery`` block where the node's recovery
+    (``rc``, its RecoveryConfig) is on, else None.  Raises ValueError where
+    the block is missing, is given with recovery off, or differs from ``rc``
+    in any of RECOVERY_KEYS: the program and the judge never work from
+    different parameters."""
+    block = config.get("recovery")
+    if not rc.enabled:
+        if block is not None:
+            raise ValueError("the configuration has a recovery block but the node's recovery "
+                             "is off")
+        return None
+    if block is None:
+        raise ValueError("the node's recovery is on but the configuration has no recovery block")
+    differ = []
+    for k in RECOVERY_KEYS:
+        want = getattr(rc, k)
+        want = dataclasses.asdict(want) if k == "pso" else want
+        got = block.get(k)
+        got = tuple(got) if isinstance(want, tuple) and isinstance(got, list) else got
+        if got != want:
+            differ.append(f"{k}: block {got!r}, node {want!r}")
+    if differ:
+        raise ValueError("the recovery block differs from the node's RecoveryConfig: "
+                         + "; ".join(differ))
+    return block
+
+
 def run_node(cell, seed: int, seconds: float, trace: bool, device, t0: float) -> Run:
     from ndtpso_slam_tpu_torch.node import NodeConfig, SlamNode
     from ndtpso_slam_tpu_torch.ops import rollout_local as rl
 
     p, c = cell.traffic, dict(cell.config["node"])
-    lap = synthetic.lap_log(p, seed)
+    lap, sched = synthetic.NODE_TRAFFIC[p["kind"]](p, seed)
     b = lap.beams
     n_lap = lap.ranges.shape[0]
     ncfg = NodeConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in c.items()},
                       seed=seed)
     node = SlamNode(ncfg, verbose=False, device=device)
-    poses, fitness = [], []
+    rc = node.slam_cfg.recovery
+    block = recovery_block(cell.config, rc)
+    poses, fitness, accepted = [], [], []
 
     def step():
         t = len(poses)
-        poses.append(node.process_scan(lap.ranges[t % n_lap], b.angle_min, b.angle_increment,
-                                       b.range_max, timestamp=t * lap.dt))
+        before = node.state.recoveries
+        poses.append(node.process_scan(lap.ranges[sched.index(t)], b.angle_min,
+                                       b.angle_increment, b.range_max, timestamp=t * lap.dt))
         fitness.append(node.state.fitness)
+        if node.state.recoveries != before:
+            accepted.append(t)
 
     for _ in range(int(p["warmup_laps"]) * n_lap):
         step()
@@ -123,11 +173,13 @@ def run_node(cell, seed: int, seconds: float, trace: bool, device, t0: float) ->
                     step()
             return steps
 
+        shape = dict(batch=1, n_pts=int(c["max_beams"]), population=int(c["pso_population"]),
+                     iterations=int(c["pso_iterations"]))
+        if block is not None:  # K3's launches in the relocalization's swarms
+            shape["k3"] = dict(batch=rc.k_hypotheses, n_pts=int(c["max_beams"]),
+                               population=rc.pso.population)
         view = T.traced(window, lambda: rl.pso_rollout_local.LAUNCHES,
-                        lambda name: "rollout_local" in name, "node",
-                        dict(batch=1, n_pts=int(c["max_beams"]),
-                             population=int(c["pso_population"]),
-                             iterations=int(c["pso_iterations"])))
+                        lambda name: "rollout_local" in name, "node", shape)
         # The host's rate and tail, per layer: a window with nothing recorded.
         durations, window_s = timed(step, seconds)
     elif torch.device(device).type == "cuda":
@@ -144,6 +196,7 @@ def run_node(cell, seed: int, seconds: float, trace: bool, device, t0: float) ->
     else:
         durations, window_s = timed(step, seconds)
     mem = peak(device)
+    timed_from = len(poses) - len(durations)  # the timed window's steps come last
     served = np.stack(poses)
     fit = torch.stack(fitness).cpu().numpy().astype(np.float64)
     st = node.state
@@ -158,16 +211,28 @@ def run_node(cell, seed: int, seconds: float, trace: bool, device, t0: float) ->
                                       torch.float64) + final_map["mean"].double())
     rng = np.random.default_rng([seed, 1])
     window_steps = np.arange(first, len(served))
+    kidnaps = sched.kidnaps(first, len(served))
+    sampled_kidnaps = []
+    if block is not None and kidnaps:
+        # Kidnaps and the step after each are judged apart (judge.py).
+        sampled_kidnaps = J.sample_rows(np.random.default_rng([seed, 4]), kidnaps,
+                                        int(p["sample_events"])).tolist()
+        apart = set(kidnaps) | {t + 1 for t in kidnaps}
+        window_steps = np.asarray([t for t in window_steps if t not in apart], np.int64)
     sample = sorted(set(range(min(4, first))) |
                     set(J.sample_rows(rng, window_steps, int(p["sample_steps"])).tolist()))
+    index = [sched.index(t) for t in range(len(served))]
 
     def judge(control=False, witness=False):
         return J.judge_node(lap, c, cell.config["parted"], seed, served, fit, final_map, raster,
-                            sample, device, control=control, witness=witness)
+                            sample, device, control=control, witness=witness, index=index,
+                            recovery=block, accepted=accepted, events=sampled_kidnaps)
 
+    events = {"kidnaps": kidnaps, "accepted": [t for t in accepted if t >= first],
+              "timed_from": timed_from}
     return Run(attempted=len(served) - first, durations=durations, window_s=window_s,
                setup_s=setup_s, view=view, memory_peak=mem, judge=judge, per_unit=1,
-               card_busy_s=card_busy_s)
+               card_busy_s=card_busy_s, events=events)
 
 
 # -------------------------------------------------------------------- batch

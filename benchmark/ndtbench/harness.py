@@ -27,7 +27,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "ndtpso_slam_tpu")
 @dataclasses.dataclass
 class Context:
     """What a metric's reader reads: the window's durations and counts, and
-    with ``--trace 1`` the traced window (``trace.View``), else None."""
+    with ``--trace 1`` the traced window (``trace.View``), else None.
+    ``events``: the node's kidnap and accepted-relocalization steps
+    (``drivers.Run.events``), None for batch matching."""
 
     kind: str
     units: int
@@ -37,6 +39,7 @@ class Context:
     setup_s: float
     trace: object
     card_busy_s: Optional[float] = None  # CUPTI's busy time over the window
+    events: Optional[dict] = None
 
 
 def forbidden_modules() -> List[str]:
@@ -73,7 +76,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device, t0: 
     chk = J.checks(numbers, limits)
     ctx = Context(kind=kind, units=run.attempted, per_unit=run.per_unit,
                   durations=run.durations, window_s=run.window_s, setup_s=run.setup_s,
-                  trace=run.view, card_busy_s=run.card_busy_s)
+                  trace=run.view, card_busy_s=run.card_busy_s, events=run.events)
     result = {
         "correct": J.passed(chk),
         "attempted": run.attempted,

@@ -31,6 +31,32 @@ stencil cost of the node's cost mode.  Compared, each against its limit:
   side whose int8 values differ by more than 1 (``p·100`` truncates, so a
   p one rounding apart can land on either side of an integer).
 
+A node with tracking-loss recovery on (the configuration's ``recovery``
+block) is replayed by the program's rule: the scan played at each step is
+the traffic's schedule's; a scan with fewer than ``min_valid_beams`` valid
+beams dead-reckons at the last motion and stays out of the map; the motion
+after a step whose relocalization was accepted (the run's ``events``, read
+as the served poses are) is 0, so the next align's deviation is 0; and at a
+sampled step the reference relocalizes (``reference.relocalize``) where its
+own align's fitness lies under ``fitness_threshold`` after the cold start,
+and takes the relocalized pose where its exact cost is strictly lower than
+the align's and its fitness lies in [``accept_fitness``, 1].  Steps
+``events`` (kidnaps sampled from the seed) and the step after each are
+judged apart:
+
+* ``event_xy_p75_m``, ``event_th_p75_rad``, ``event_score_gap_p75``: as
+  above, over those steps;
+* ``accept_differ_pct``: the share of the sampled kidnaps at which the
+  program and the reference differ on accepting a relocalization.
+
+The numbers above keep their meaning over the other sampled steps.
+``event_parted_pct`` (``parted_pct`` over the event steps) is reported
+(``"reported"``) and not compared: a sound relocalization's swarms end
+millimetres to centimetres from the float64 reference's, and now and then
+in another basin that scores as well, so on sound runs it reads about half
+the control's 100% and no limit parts the two (PERF.md §6, PR 20); the
+score gap is compared in its place.
+
 Batch matching (``judge_batch``).  Each sampled solve is solved again by the
 reference in float64 from the same inputs (the benchmark's own maps and
 points, the same key, guess and deviation) with the frozen cost.  Compared
@@ -131,25 +157,67 @@ def node_fitness(grid: R.Grid, snap, pose, pts, valid):
     return -cost / valid.sum().clamp(min=1).to(cost.dtype)
 
 
-def _deviation(served, t, dtype, device):
+def _deviation(served, t, dtype, device, motion=None):
     """NDTFrame::align's deviation at step t: the cold-start one for the
-    first two aligns, then twice the last served motion."""
+    first two aligns, then twice the last served motion (``motion`` [T, 3],
+    where given: the motion the program keeps after each step)."""
     if t < 3:
         return torch.tensor(R.FIRST_DEVIATION, dtype=dtype, device=device)
+    if motion is not None:
+        return torch.abs(2.0 * motion[t - 1]).to(dtype)
     return torch.abs(2.0 * (served[t - 1] - served[t - 2])).to(dtype)
+
+
+def _motions(served: np.ndarray, degraded: np.ndarray, accepted) -> np.ndarray:
+    """The motion the program keeps after each step with recovery on: that
+    of the step before where the scan dead-reckoned, 0 where a
+    relocalization was accepted, else the served motion.  [T, 3]."""
+    motion = np.zeros_like(served)
+    for t in range(1, served.shape[0]):
+        if degraded[t]:
+            motion[t] = motion[t - 1]
+        elif t not in accepted:
+            motion[t] = served[t] - served[t - 1]
+    return motion
+
+
+def recovery_step(cfg: dict, rc: dict, grid: R.Grid, snap, key, guess, deviation, pts, valid,
+                  t: int):
+    """The reference's step t > 0 of a node with recovery on, at the guess's
+    dtype: the align, then the relocalization where its fitness is under the
+    threshold after the cold start (t >= 3), taken by the program's accept
+    rule.  Returns (pose [3], relocalized pose accepted)."""
+    pose = node_solve(cfg, grid, snap, key, guess, deviation, pts, valid)
+    if t < 3:
+        return pose, False
+    n = valid.sum().clamp(min=1).to(guess.dtype)
+    cost = R.exact_cost(pose, snap, grid, pts, valid)
+    if not bool(-cost / n < rc["fitness_threshold"]):
+        return pose, False
+    rpose, rcost = R.relocalize(key, snap, grid, pts, valid, guess, pose, rc)
+    rfit = -rcost / n
+    if bool((rcost < cost) & (rfit >= rc["accept_fitness"]) & (rfit <= 1.0)):
+        return rpose, True
+    return pose, False
 
 
 def judge_node(lap, node_cfg: dict, parted: dict, seed: int, served_poses: np.ndarray,
                fitness: np.ndarray, final_map: Optional[dict], raster: Optional[np.ndarray],
-               sample, device, control: bool = False, witness: bool = False) -> dict:
+               sample, device, control: bool = False, witness: bool = False, index=None,
+               recovery: Optional[dict] = None, accepted=(), events=()) -> dict:
     """The node's numbers (module docstring) over steps ``sample``.
     served_poses [T, 3], fitness [T]: what the node served; final_map
     {"mean": [C, 2] world, "icov": [C, 3], "built": [C]} and ``raster``
-    [H, W] int8 after step T - 1.  With ``control`` the candidate is not
-    the node but the reference in bfloat16 fed the same served history: its
-    solve and rescore on the reference's map rounded to bfloat16, its map
-    and raster built in bfloat16 (the served poses and the fitness are read
-    only for that history)."""
+    [H, W] int8 after step T - 1; ``index`` [T]: the lap's scan played at
+    each step (None: t mod L).  ``recovery``: the configuration's recovery
+    block where recovery is on, else None; ``accepted``: the steps at which
+    the node accepted a relocalization; ``events``: the sampled kidnap steps,
+    judged with the step after each apart from ``sample``.  With
+    ``control`` the candidate is not the node but the reference in bfloat16
+    fed the same served history: its solve (and relocalization) and rescore
+    on the reference's map rounded to bfloat16, its map and raster built in
+    bfloat16 (the served poses, the fitness and ``accepted`` are read only
+    for that history)."""
     f64, lo = torch.float64, torch.bfloat16
     ref = NodeReplay(node_cfg, f64, device)
     low = NodeReplay(node_cfg, lo, device) if control else None
@@ -160,62 +228,103 @@ def judge_node(lap, node_cfg: dict, parted: dict, seed: int, served_poses: np.nd
                                device, frame_half=float(node_cfg["frame_size_m"]) / 2)
     served = torch.as_tensor(served_poses, dtype=f64, device=device)
     init = torch.tensor(node_cfg.get("init_pose", (0.0, 0.0, 0.0)), dtype=f64, device=device)
-    n_lap = lap.ranges.shape[0]
-    want = set(int(t) for t in sample)
+    n_steps = served.shape[0]
+    index = np.arange(n_steps) % lap.ranges.shape[0] if index is None else np.asarray(index)
+    rc = recovery
+    degraded = np.zeros(n_steps, bool)
+    motion = None
+    accepted = set(int(t) for t in accepted)
+    if rc is not None:
+        degraded = valid.sum(-1).cpu().numpy()[index] < int(rc["min_valid_beams"])
+        degraded[0] = False
+        motion = torch.as_tensor(_motions(np.asarray(served_poses, np.float64), degraded,
+                                          accepted), dtype=f64, device=device)
+    kidnaps = set(int(t) for t in events)
+    event_steps = kidnaps | {t + 1 for t in kidnaps if t + 1 < n_steps}
+    want = set(int(t) for t in sample) | event_steps
     gaps = {"fitness_gap": 0.0}
-    samples, witnesses = [], []
-    for t in range(served.shape[0]):
-        p, v = pts[t % n_lap], valid[t % n_lap]
+    samples, event_samples, witnesses = [], [], []
+
+    def solve(t, snap, key, guess, pts_t, v, dtype):
+        """The reference's answer at step t > 0 at ``dtype``: (pose,
+        relocalized pose accepted)."""
+        if rc is None:
+            return node_solve(node_cfg, grid, snap, key, guess, _deviation(served, t, dtype,
+                                                                           device), pts_t, v), False
+        if degraded[t]:
+            return (served[t - 1] + motion[t - 1]).to(dtype), False
+        return recovery_step(node_cfg, rc, grid, snap, key, guess,
+                             _deviation(served, t, dtype, device, motion), pts_t, v, t)
+
+    for t in range(n_steps):
+        i = int(index[t])
+        p, v = pts[i], valid[i]
         if t in want:
             snap = ref.map.snapshot()
             key = R.node_key(seed, t)
-            mine = init if t == 0 else node_solve(node_cfg, grid, snap, key, served[t - 1],
-                                                  _deviation(served, t, f64, device), p, v)
+            mine, mine_acc = (init, False) if t == 0 else solve(t, snap, key, served[t - 1], p,
+                                                                v, f64)
             if control:
                 snap_lo = tuple(x.to(lo) if x.is_floating_point() else x for x in snap)
-                cand = init.to(lo) if t == 0 else node_solve(
-                    node_cfg, grid, snap_lo, key, served[t - 1].to(lo),
-                    _deviation(served, t, lo, device), p.to(lo), v)
+                cand, cand_acc = (init.to(lo), False) if t == 0 else solve(
+                    t, snap_lo, key, served[t - 1].to(lo), p.to(lo), v, lo)
                 cand_fit = float(node_fitness(grid, snap_lo, cand, p.to(lo), v))
                 cand = cand.to(f64)
             else:
-                cand, cand_fit = served[t], float(fitness[t])
+                cand, cand_fit, cand_acc = served[t], float(fitness[t]), t in accepted
             fit_cand = float(node_fitness(grid, snap, cand, p, v))
             fit_mine = float(node_fitness(grid, snap, mine, p, v))
             row = (t, float(torch.hypot(cand[0] - mine[0], cand[1] - mine[1])),
                    float(torch.abs(cand[2] - mine[2])), max(0.0, fit_mine - fit_cand),
                    abs(cand_fit - fit_cand))
-            samples.append(row)
-            if witness and not control and t > 0 and parted_pct([row[1]], [row[2]], parted):
-                witnesses.append(_node_witness(node_cfg, grid, snap, key, served, t, p, v, mine,
-                                               cand))
-            gaps["fitness_gap"] = (max(gaps["fitness_gap"], row[4]) if math.isfinite(row[4])
-                                   else float("nan"))
-        ref.ingest(served[t], p, v)
+            if t in event_steps:
+                event_samples.append(row + (mine_acc, cand_acc))
+            else:
+                samples.append(row)
+                if (witness and not control and t > 0 and not mine_acc and not degraded[t]
+                        and parted_pct([row[1]], [row[2]], parted)):
+                    witnesses.append(_node_witness(
+                        node_cfg, grid, snap, key, served, t, p, v, mine, cand,
+                        _deviation(served, t, f64, device, motion)))
+                gaps["fitness_gap"] = (max(gaps["fitness_gap"], row[4]) if math.isfinite(row[4])
+                                       else float("nan"))
+        v_in = torch.zeros_like(v) if degraded[t] else v  # a dead-reckoned scan stays out
+        ref.ingest(served[t], p, v_in)
         if low is not None:
-            low.ingest(served[t].to(lo), p.to(lo), v)
+            low.ingest(served[t].to(lo), p.to(lo), v_in)
     if low is not None:
         mean, icov, built = (x.to(f64) if x.is_floating_point() else x
                              for x in low.map.snapshot())
         final_map = {"mean": mean, "icov": icov, "built": built}
         raster = None if low.raster is None else low.raster.raster()
+    p75 = lambda rows, col: float(np.quantile([s[col] for s in rows], 0.75))
     for key, col in (("pose_xy_p75_m", 1), ("pose_th_p75_rad", 2), ("score_gap_p75", 3)):
-        gaps[key] = float(np.quantile([s[col] for s in samples], 0.75))
+        gaps[key] = p75(samples, col)
     gaps["parted_pct"] = parted_pct([s[1] for s in samples], [s[2] for s in samples], parted)
     if final_map is not None:
         gaps["map_off_pct"] = map_off_pct(ref.map, final_map, device)
     if ref.raster is not None and raster is not None:
         gaps["raster_off_pct"] = raster_off_pct(ref.raster.raster(), raster, device)
-    return {"numbers": gaps, "samples": samples, "witnesses": witnesses}
+    reported = {}
+    if event_samples:
+        gaps["event_xy_p75_m"] = p75(event_samples, 1)
+        gaps["event_th_p75_rad"] = p75(event_samples, 2)
+        gaps["event_score_gap_p75"] = p75(event_samples, 3)
+        differ = [s[5] != s[6] for s in event_samples if s[0] in kidnaps]
+        gaps["accept_differ_pct"] = 100.0 * float(np.mean(differ)) if differ else 0.0
+        reported["event_parted_pct"] = parted_pct([s[1] for s in event_samples],
+                                                  [s[2] for s in event_samples], parted)
+    return {"numbers": gaps, "reported": reported, "samples": samples,
+            "event_samples": event_samples, "witnesses": witnesses}
 
 
-def _node_witness(cfg, grid, snap, key, served, t, pts, valid, mine, cand) -> dict:
-    """A parted node sample solved again by the reference in float32, and in
-    float64 from its inputs (map, scan, guess, deviation) rounded to
-    float32: each solve's distance from the float64 solve and from the
-    served pose, and each pose's mean score per beam on the float64 map."""
+def _node_witness(cfg, grid, snap, key, served, t, pts, valid, mine, cand, dev) -> dict:
+    """A parted node sample's align solved again by the reference in
+    float32, and in float64 from its inputs (map, scan, guess, deviation
+    ``dev``) rounded to float32: each solve's distance from the float64
+    solve and from the served pose, and each pose's mean score per beam on
+    the float64 map."""
     f64, f32 = torch.float64, torch.float32
-    dev = _deviation(served, t, f64, served.device)
     out = {"step": t}
     for name, back in (("f32", f32), ("f64_of_f32_inputs", f64)):
         conv = lambda x: x.to(f32).to(back) if x.is_floating_point() else x

@@ -29,6 +29,12 @@ handed only raw inputs (ranges, points, keys) and the outputs it judges.
   solves at once: every particle sees the global best of the previous
   iteration, a minimum is the first minimal index, every improvement test is
   a strict ``<``.
+* :func:`relocalize`: the tracking-loss relocalization as the JAX package
+  describes it (``models/slam.py:_relocalize``), from a configuration's
+  ``recovery`` block: a dense pose grid about the last pose scored with the
+  exact cost on an inflated map, K hypotheses by non-maximum suppression,
+  K swarms of the frozen cost refining them on a lightly inflated map and
+  polishing them on the map itself, the winner by the exact cost.
 """
 
 from __future__ import annotations
@@ -413,3 +419,154 @@ class Raster:
 
     def raster(self):
         return self.og[: self.n * self.n].view(self.n, self.n)
+
+
+# ----------------------------------------------------------------- recovery
+
+# The relocalization's constants (the JAX package's models/slam.py:
+# _relocalize): the polish's deviation; the counters that derive its keys
+# from the step's key, threefry(key, RELOC_KEY), then one key per swarm,
+# threefry(that, (k, REFINE_CTR)) to refine and threefry(that, (k + 0x907,
+# 0x13)) to polish; the map size from which the grid scores every second
+# beam (grid_beam_stride 0).
+POLISH_DEVIATION = (0.1, 0.1, 0.05)
+RELOC_KEY = (0x5EC0, 0xFA11)
+REFINE_CTR = 0x5117
+POLISH_CTR = (0x907, 0x13)
+AUTO_STRIDE_MIN_CELLS = 65536
+# Grid poses scored at once.
+GRID_CHUNK = 4096
+
+
+def smooth(snap, sigma):
+    """The snapshot with every cell's Σ inflated to Σ + σ²I, from its packed
+    inverse Λ (Σ = adj(Λ)/det(Λ)); a cell whose Λ has det <= 1e-20 counts
+    as unbuilt."""
+    mean, icov, built = snap
+    a, b, c = icov[..., 0], icov[..., 1], icov[..., 2]
+    det = a * c - b * b
+    ok = det > 1e-20
+    det = torch.where(ok, det, torch.ones_like(det))
+    s2 = sigma * sigma
+    sa, sb, sc = c / det + s2, -b / det, a / det + s2
+    d2 = sa * sc - sb * sb
+    return mean, torch.stack([sc / d2, -sb / d2, sa / d2], -1), built & ok
+
+
+def window_origin(pose, grid: Grid, ps: int):
+    """The corner cell (ox, oy) of the ps x ps window about ``pose``'s cell,
+    moved to lie inside the grid."""
+    ix, iy, _ = grid.coords(pose[:2])
+    corner = lambda i: min(max(int(i) - ps // 2, 0), grid.width - ps)
+    return corner(ix), corner(iy)
+
+
+def window_cost_fn(snap, grid: Grid, points, valid, window):
+    """The frozen cost of K swarms over one scan and one map: each point held
+    to the cell it falls in at its swarm's binding pose (a cell outside the
+    ps x ps ``window`` = (ox, oy, ps) counts as unbuilt; ``window`` None:
+    the whole map), scored at the particle's pose as exp(-max(d'Λd, 0)/2).
+    points [N, 2]; cost(poses [K, P, 3], binds [K, 3]) -> [K, P]."""
+    mean, icov, built = snap
+    w = grid.width
+
+    def cost(poses, binds):
+        ix, iy, inb = grid.coords(transform(points, binds))  # [K, N]
+        ok = inb & valid & (ix >= 0) & (ix < w) & (iy >= 0) & (iy < w)
+        if window is not None:
+            ox, oy, ps = window
+            ok = ok & (ix >= ox) & (ix < ox + ps) & (iy >= oy) & (iy < oy + ps)
+        idx = torch.where(ok, ix + w * iy, 0)
+        ok = ok & built[idx]
+        d = transform(points, poses) - mean[idx][:, None]  # [K, P, N, 2]
+        s = torch.exp(-0.5 * torch.clamp(quad(icov[idx][:, None], d), min=0.0))
+        return -torch.where(ok[:, None], s, torch.zeros((), dtype=s.dtype, device=s.device)).sum(-1)
+
+    return cost
+
+
+def reloc_grid(last, rc: dict):
+    """The dense pose grid over ±``spread`` about ``last``, [G, 3] (x
+    slowest, θ fastest), at ``last``'s dtype."""
+    (nx, ny, nt), (sx, sy, st) = rc["grid"], rc["spread"]
+    lin = lambda n, s: torch.linspace(-s, s, n, dtype=torch.float64, device=last.device)
+    gx, gy, gt = torch.meshgrid(lin(nx, sx), lin(ny, sy), lin(nt, st), indexing="ij")
+    off = torch.stack([gx.reshape(-1), gy.reshape(-1), gt.reshape(-1)], -1).to(last.dtype)
+    return last + off
+
+
+def nms_top_k(poses, costs, k: int, radius):
+    """K picks from poses [G, 3], each the first minimum of the costs left,
+    after which every pose within ±radius of it (θ wrapped) is left out.
+    Returns [K, 3], best first."""
+    two_pi = 2.0 * math.pi
+    inf = torch.full((), float("inf"), dtype=costs.dtype, device=costs.device)
+    picks = []
+    for _ in range(k):
+        _, best = _select_min(costs[None], poses[None])
+        d = torch.abs(poses - best)
+        dth = torch.minimum(d[:, 2], two_pi - d[:, 2])
+        near = (d[:, 0] <= radius[0]) & (d[:, 1] <= radius[1]) & (dth <= radius[2])
+        costs = torch.where(near, inf, costs)
+        picks.append(best[0])
+    return torch.stack(picks)
+
+
+def swarm_keys(key, k: int, c0: int, c1: int, device):
+    """The K swarms' keys [K, 2]: threefry(threefry(key, RELOC_KEY),
+    (c0 + j, c1)) for j < K."""
+    r0, r1 = threefry(key[0] & M32, key[1] & M32, *RELOC_KEY)
+    j = torch.arange(k, dtype=torch.int64, device=device)
+    x0, x1 = threefry(r0, r1, j + c0, torch.full_like(j, c1))
+    return torch.stack([x0, x1], -1)
+
+
+def relocalize(key, snap, grid: Grid, points, valid, last, failed, rc: dict):
+    """The relocalization of one step about the last served pose ``last``
+    after a failed align at ``failed``, at their dtype (module docstring):
+
+    1. the exact cost of every pose of :func:`reloc_grid` on the map
+       inflated by ``grid_sigma``, on every stride-th beam (``grid_beam_stride``;
+       0: 2 on a map of AUTO_STRIDE_MIN_CELLS cells or more, else 1);
+    2. K = ``k_hypotheses`` picks by :func:`nms_top_k` within 1.5 grid
+       spacings, the first two replaced by ``last`` and ``failed``;
+    3. K swarms (``pso``) of :func:`window_cost_fn` in the ``patch_cells``
+       window about ``last`` (the whole map where that is 0 or not smaller
+       than the grid), at ``deviation`` on the map inflated by
+       ``refine_sigma``, then at POLISH_DEVIATION on the map itself;
+    4. the winner: the first minimum of the exact cost.
+
+    points [N, 2]; key (k0, k1) the step's key.  Returns (pose [3], exact
+    cost [])."""
+    k = int(rc["k_hypotheses"])
+    poses = reloc_grid(last, rc)
+    stride = int(rc["grid_beam_stride"]) or (2 if grid.cells >= AUTO_STRIDE_MIN_CELLS else 1)
+    coarse = smooth(snap, float(rc["grid_sigma"]))
+    sp, sv = points[::stride], valid[::stride]
+    costs = torch.cat([exact_cost(c, coarse, grid, sp, sv) for c in poses.split(GRID_CHUNK)])
+    (nx, ny, nt), (sx, sy, st) = rc["grid"], rc["spread"]
+    spacing = torch.tensor([2.0 * sx / max(nx - 1, 1), 2.0 * sy / max(ny - 1, 1),
+                            2.0 * st / max(nt - 1, 1)], dtype=last.dtype, device=last.device)
+    hypo = nms_top_k(poses, costs, k, 1.5 * spacing)
+    hypo[0] = last
+    if k > 1:
+        hypo[1] = failed
+    ps = int(rc["patch_cells"])
+    window = (*window_origin(last, grid, ps), ps) if 0 < ps < grid.width else None
+    pso_cfg = rc["pso"]
+
+    def swarms(keys, start, deviation, m):
+        dev = torch.tensor(deviation, dtype=last.dtype, device=last.device).expand(k, 3)
+        pose, _ = pso(keys, start, dev, window_cost_fn(m, grid, points, valid, window),
+                      int(pso_cfg["population"]), int(pso_cfg["iterations"]),
+                      float(pso_cfg["w"]), float(pso_cfg["c1"]), float(pso_cfg["c2"]),
+                      float(pso_cfg["w_damping"]))
+        return pose
+
+    sigma = float(rc["refine_sigma"])
+    refined = swarms(swarm_keys(key, k, 0, REFINE_CTR, last.device), hypo, rc["deviation"],
+                     smooth(snap, sigma) if sigma > 0 else snap)
+    polished = swarms(swarm_keys(key, k, *POLISH_CTR, last.device), refined, POLISH_DEVIATION,
+                      snap)
+    cost, pose = _select_min(exact_cost(polished, snap, grid, points, valid)[None], polished[None])
+    return pose[0], cost[0]

@@ -1,13 +1,14 @@
-"""The least time an H100 could take for a whole-solve kernel's work.
+"""The least time an H100 could take for a kernel's work.
 
 A frozen copy of ``chip_smoke.py``'s bound arithmetic (``PEAK``, ``bound``,
 ``score_ops``, ``_evaluations``, ``ROLLOUT_LOCAL_FLOPS``,
-``_rollout_local_bound``, ``_rollout_bound``), so a change to the program
-cannot move the yardstick.  The one change: the two kernel bounds take the
-shapes of the packed operands (B solves of N points, a (2r+1)² stencil of 8
-floats per lane and 8 floats per point, all float32) where the origin took
-the tensors.  ``tests/test_bench_frozen.py`` holds the copy to the values
-the origin gave when it was copied.
+``_rollout_local_bound``, ``_rollout_bound``, ``_score_bound``), so a change
+to the program cannot move the yardstick.  The one change: the kernel
+bounds take the shapes of the operands (B solves of N points, a (2r+1)²
+stencil of 8 floats per lane and 8 floats per point, K3's features,
+coefficients and mask, all float32) where the origin took the tensors.
+``tests/test_bench_frozen.py`` holds the copy to the values the origin
+gave when it was copied.
 """
 
 from __future__ import annotations
@@ -76,3 +77,13 @@ def rollout_bound(batch, n_pts, population, live_iterations, score_dtype="f32"):
     pairs = evaluations(population, live_iterations) * n_pts
     zpipe = "bf16" if score_dtype == "bf16" else "fp32"
     return bound(packed_bytes(batch, n_pts), **score_ops(pairs, 15, zpipe, masked=False))
+
+
+def score_bound(batch, n_pts, population, features=15):
+    """K3's bound for one launch (``csrc/score.cu``): the transposed
+    features [B, F, P], the coefficients [B, N, F] and the mask [B, N] read
+    and the costs [B, P] written, all float32; every (point, particle) pair
+    scored on the FP32 pipes with its mask."""
+    nbytes = 4.0 * (batch * features * population + batch * n_pts * features + batch * n_pts
+                    + batch * population)
+    return bound(nbytes, **score_ops(batch * population * n_pts, features))

@@ -14,6 +14,11 @@ parameters (a file under ``traffic/``):
   each a map built from jittered re-observations of a reference scan and a
   query scan from a known offset.
 
+The node's traffic is a lap and a :class:`Schedule`, the lap index played at
+each step, made by the generator that the traffic's ``kind`` names in
+:data:`NODE_TRAFFIC`: ``lap_log`` replays the lap in order, ``kidnap_log``
+carries the robot ahead along it now and then (:func:`kidnap_log`).
+
 Pure NumPy.  Every draw comes from ``numpy.random.default_rng(seed)``, which
 takes any non-negative seed (``RandomState`` stops at 2**32).
 """
@@ -21,7 +26,7 @@ takes any non-negative seed (``RandomState`` stops at 2**32).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 
@@ -133,6 +138,77 @@ def lap_log(p: dict, seed: int) -> LapLog:
     ranges = np.stack([raycast(segs, poses[i], b.n, b.angle_min, b.angle_increment,
                                b.range_max) for i in range(lap)])
     return LapLog(ranges.astype(np.float32), poses, dt, b, segs)
+
+
+class Schedule:
+    """The lap index played at each step of a node's run: ``t mod L`` through
+    the ``warmup`` steps; in the window (step ``warmup`` + w) the index
+    advances by 1, and at every ``every``-th window scan (w = every - 1,
+    2·every - 1, ...) by an extra jump drawn uniformly from ``jumps``
+    (inclusive) by ``rng``.  ``every`` 0: no jumps, ``t mod L`` at every
+    step.  Jumps are drawn in blocks of a fixed size, so a seed gives the
+    same schedule however far it is read."""
+
+    BLOCK = 1024
+
+    def __init__(self, lap: int, warmup: int, every: int = 0, jumps=(0, 0),
+                 rng: Optional[np.random.Generator] = None):
+        self.lap, self.warmup, self.every = int(lap), int(warmup), int(every)
+        self.lo, self.hi = int(jumps[0]), int(jumps[1])
+        if self.every < 0 or not 0 <= self.lo <= self.hi:
+            raise ValueError(f"bad schedule: every {every}, jumps {jumps}")
+        self.rng = rng
+        self.offsets = np.zeros(1, np.int64)  # offsets[j]: the first j jumps summed
+
+    def _events(self, t: int) -> int:
+        """Jumps made up to and including step t."""
+        w = t - self.warmup
+        return 0 if self.every == 0 or w < 0 else (w + 1) // self.every
+
+    def index(self, t: int) -> int:
+        j = self._events(t)
+        while j >= len(self.offsets):
+            block = self.rng.integers(self.lo, self.hi + 1, self.BLOCK)
+            self.offsets = np.concatenate([self.offsets, self.offsets[-1] + np.cumsum(block)])
+        return int((t + self.offsets[j]) % self.lap)
+
+    def kidnaps(self, lo: int, hi: int) -> List[int]:
+        """The steps in [lo, hi) at which the robot is carried ahead."""
+        if self.every == 0:
+            return []
+        first = self.warmup + self.every - 1
+        start = max(lo, first)
+        start += (first - start) % self.every
+        return list(range(start, hi, self.every))
+
+
+class NodeFeed(NamedTuple):
+    lap: LapLog
+    schedule: Schedule
+
+
+def lap_feed(p: dict, seed: int) -> NodeFeed:
+    """``lap_log``'s lap replayed in order (traffic kind ``lap_log``)."""
+    lap = lap_log(p, seed)
+    n = lap.ranges.shape[0]
+    return NodeFeed(lap, Schedule(n, int(p["warmup_laps"]) * n))
+
+
+def kidnap_log(p: dict, seed: int) -> NodeFeed:
+    """``lap_log``'s lap, exactly as it makes it, played with kidnaps
+    (traffic kind ``kidnap_log``): the warm-up laps in order, so the whole
+    map is built first; then at every ``kidnap_every``-th window scan the
+    robot is carried a further ``jump_scans`` = [lo, hi] scans along the lap,
+    drawn uniformly by a generator of its own from the seed (``lap_log``'s
+    draws are left as they are)."""
+    lap = lap_log(p, seed)
+    n = lap.ranges.shape[0]
+    return NodeFeed(lap, Schedule(n, int(p["warmup_laps"]) * n, int(p["kidnap_every"]),
+                                  p["jump_scans"], np.random.default_rng([seed, 0x6B1D])))
+
+
+# The node's traffic generators, by the traffic's ``kind``.
+NODE_TRAFFIC = {"lap_log": lap_feed, "kidnap_log": kidnap_log}
 
 
 class PairPool(NamedTuple):

@@ -1,14 +1,18 @@
 """On the card: each cell's command runs end to end, prints its result as
 the last line of standard output with ``correct`` true, and the checks as
-the last lines of standard error.  Marked ``gpu``; skips without a card."""
+the last lines of standard error; and the patrol cell turned into a node
+with recovery on fed a kidnap log (``bench_small.KIDNAP``) runs at its
+published widths, correct, with the relocalization's kernel (K3) in the
+traced window.  Marked ``gpu``; skips without a card."""
 
 import json
 import subprocess
 import sys
+import time
 
 import pytest
 
-from bench_small import ROOT
+from bench_small import KIDNAP, ROOT
 
 
 @pytest.mark.gpu
@@ -31,3 +35,30 @@ def test_cell_on_the_card(workload, trace):
         # (the traced windows read 0.88-0.90 ms).
         assert 0 < result["metrics"]["card_ms_per_scan"]["value"] < 1.5
     assert out.stderr.strip().splitlines()[-1].startswith("check ")
+
+
+@pytest.mark.gpu
+def test_kidnap_on_the_card(monkeypatch):
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ndtbench import cell, harness
+
+    seen = {}
+    read = cell.read_metrics
+
+    def spy(metrics, ctx):
+        seen["ctx"] = ctx
+        return read(metrics, ctx)
+
+    monkeypatch.setattr(cell, "read_metrics", spy)
+    r = harness.run_cell("scan_launch.patrol", 3000000023, 3.0, True, torch.device("cuda", 0),
+                         time.perf_counter(), overrides=KIDNAP)
+    assert r["correct"], r["checks"]
+    assert {"event_score_gap_p75", "accept_differ_pct"} <= set(r["checks"])
+    ctx = seen["ctx"]
+    kidnaps, accepted = ctx.events["kidnaps"], set(ctx.events["accepted"])
+    assert kidnaps and sum(k in accepted for k in kidnaps) >= 0.8 * len(kidnaps), ctx.events
+    assert any("score_kernel" in name for name, _, _ in ctx.trace.kernels)
+    assert ctx.trace.shape["k3"] == {"batch": 8, "n_pts": 384, "population": 128}

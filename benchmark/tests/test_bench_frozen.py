@@ -1,6 +1,7 @@
 """The benchmark's frozen copies give what their origins gave when they
 were copied (``ndtpso_slam_tpu_torch/io/synthetic.py``; ``chip_smoke.py``'s
-bound arithmetic), recorded here so the test outlives the origins."""
+bound arithmetic, ``_score_bound`` included), recorded here so the test
+outlives the origins."""
 
 import math
 
@@ -57,3 +58,16 @@ def test_bound_arithmetic_as_recorded():
         0.6321535006567164, rel=1e-12)
     assert roofline.rollout_bound(16, 384, 4096, [50] * 16, "bf16")[0] == pytest.approx(
         0.306919375573921, rel=1e-12)
+
+
+def test_score_bound_as_recorded():
+    # K3 at the relocalization's swarms (B = K = 8, N = 384, P = 128) and at
+    # batch matching's fast_fused shape (B = 256, P = 4096): chip_smoke.py's
+    # _score_bound on those tensors gave these.
+    assert roofline.score_bound(8, 384, 128) == (pytest.approx(0.00019954244776119402,
+                                                               rel=1e-12), "operations")
+    assert roofline.score_bound(256, 384, 4096) == (pytest.approx(0.20433146650746267,
+                                                                  rel=1e-12), "operations")
+    # The swarms' global-best seed, one particle a swarm: bound by its bytes.
+    assert roofline.score_bound(8, 384, 1) == (pytest.approx(5.8841791044776125e-05,
+                                                             rel=1e-12), "bytes")

@@ -18,7 +18,7 @@ _CELL = """
 import json, sys
 sys.path[:0] = [{bench!r}, {tests!r}, {root!r}]
 import bench_small
-r = bench_small.run({workload!r}, control={control}, trace={trace})
+r = bench_small.run({workload!r}, control={control}, trace={trace}, more={more})
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 
@@ -41,13 +41,15 @@ def _tops(code):
     return set(json.loads(out.stdout.strip().splitlines()[-1]))
 
 
-@pytest.mark.parametrize("workload,control,trace", [
-    ("scan_launch.patrol", False, False), ("scan_launch.patrol", True, True),
-    ("batch_match.b256", False, True), ("batch_match.b16", True, False)])
-def test_cell_loads_no_jax(workload, control, trace):
+@pytest.mark.parametrize("workload,control,trace,more", [
+    ("scan_launch.patrol", False, False, None), ("scan_launch.patrol", True, True, None),
+    ("scan_launch.patrol", False, False, "KIDNAP"), ("batch_match.b256", False, True, None),
+    ("batch_match.b16", True, False, None)])
+def test_cell_loads_no_jax(workload, control, trace, more):
     assert workload in CELLS
+    more = f"bench_small.{more}" if more else None
     tops = _tops(_CELL.format(bench=str(BENCH), tests=str(BENCH / "tests"), root=str(ROOT),
-                              workload=workload, control=control, trace=trace))
+                              workload=workload, control=control, trace=trace, more=more))
     assert PROGRAM in tops  # the run did drive the program
     assert not tops & FORBIDDEN
 
