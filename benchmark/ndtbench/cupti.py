@@ -17,6 +17,12 @@ wrong (allowing for the two clocks' skew).  CUPTI gives no time for an
 operation it could not time (both times 0, one in a million here): such
 records are left out and counted, and more than one in 10^4 fails the
 window, as does a record CUPTI dropped.
+
+A run that tells its steps apart takes a :meth:`DeviceClock.mark` on
+CUPTI's clock before each step; :meth:`DeviceClock.busy_between` then gives
+the card's busy time within each step, and
+:meth:`DeviceClock.crossing_share` the share of the busy time in records
+that run across a mark, which such a split gives to two steps.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import glob
 import os
 import sys
 import threading
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -68,8 +74,9 @@ class DeviceClock:
     :meth:`start` and :meth:`stop`; :attr:`busy_s` is then the length of
     the union of their intervals inside the window, :attr:`kernels` and
     :attr:`ops` their counts, :attr:`left_out` the records without a time
-    in it.  One per process: CUPTI's buffer callbacks
-    are the process's."""
+    in it; :attr:`marks` the times :meth:`mark` took in the window, and the
+    window's end where it took any.  One per process: CUPTI's buffer
+    callbacks are the process's."""
 
     _lib = None
 
@@ -93,6 +100,9 @@ class DeviceClock:
         self._lock = threading.Lock()
         self.busy_s: Optional[float] = None
         self.kernels = self.ops = self.left_out = 0
+        self.marks: List[int] = []
+        # The window's timed records, clipped to it, once stop() has read them.
+        self._starts = self._ends = np.zeros(0, np.int64)
         # Kept on the object: CUPTI calls them until the process ends.
         self._request_cb = _REQUEST(self._request)
         self._complete_cb = _COMPLETE(self._complete)
@@ -131,13 +141,21 @@ class DeviceClock:
         sync()
         for kind in KINDS:
             self._call("cuptiActivityEnable", kind)
+        self.marks = []
         self._lo = self._now()
+
+    def mark(self):
+        """Take a mark on CUPTI's clock: the host's time now, before the
+        step that follows launches anything."""
+        self.marks.append(self._now())
 
     def stop(self, sync):
         """End the window once the device has drained, read the records and
         free them."""
         sync()
         hi = self._now()
+        if self.marks:
+            self.marks.append(hi)  # the last step ends with the window
         for kind in KINDS:
             self._call("cuptiActivityDisable", kind)
         self._call("cuptiActivityFlushAll", FLUSH_FORCED)
@@ -167,18 +185,60 @@ class DeviceClock:
         if self.left_out > max(LEFT_OUT_MAX, LEFT_OUT_SHARE * len(s)):
             raise RuntimeError(f"{self.left_out} of {len(s)} CUPTI records have no time inside "
                                "the window: the record layout is not the one this reader knows")
-        s, e = s[timed], e[timed]
-        self.busy_s = union_ns(np.clip(s, self._lo, hi), np.clip(e, self._lo, hi)) * 1e-9
+        self._starts, self._ends = np.clip(s[timed], self._lo, hi), np.clip(e[timed], self._lo, hi)
+        self.busy_s = union_ns(self._starts, self._ends) * 1e-9
         self.kernels, self.ops = kernels, len(timed)
+
+    def busy_between(self, marks) -> np.ndarray:
+        """Seconds the card was busy from each of ``marks`` (ns on CUPTI's
+        clock, in order) to the next: the union of the window's records
+        clipped to each interval, so a record that crosses a mark counts in
+        both intervals, in each for its own part."""
+        m = np.asarray(marks, np.int64)
+        if np.any(np.diff(m) < 0):
+            raise ValueError("marks must be in order")
+        return np.diff(covered_ns(self._starts, self._ends, m)) * 1e-9
+
+    def crossing_share(self, marks) -> float:
+        """The share of the window's busy time in records that run across
+        one of ``marks`` (in order): what :meth:`busy_between` splits
+        between two intervals."""
+        m = np.asarray(marks, np.int64)
+        s, e = self._starts, self._ends
+        after = np.searchsorted(m, s, side="right")  # the first mark after each start
+        crosses = after < len(m)
+        crosses[crosses] = m[after[crosses]] < e[crosses]
+        busy = union_ns(s, e)
+        return union_ns(s[crosses], e[crosses]) / busy if busy else 0.0
+
+
+def merged(starts: np.ndarray, ends: np.ndarray):
+    """The union of the intervals [starts, ends) as sorted disjoint
+    intervals (starts, ends)."""
+    if not len(starts):
+        return starts[:0], ends[:0]
+    order = np.argsort(starts, kind="stable")
+    s, reach = starts[order], np.maximum.accumulate(ends[order])
+    # A piece begins where an interval starts past every earlier end.
+    first = np.flatnonzero(np.concatenate(([True], s[1:] > reach[:-1])))
+    last = np.concatenate((first[1:], [len(s)])) - 1
+    return s[first], reach[last]
+
+
+def covered_ns(starts: np.ndarray, ends: np.ndarray, times: np.ndarray) -> np.ndarray:
+    """For each of ``times``, the length of the union of the intervals
+    [starts, ends) that lies before it."""
+    s, e = merged(np.asarray(starts, np.int64), np.asarray(ends, np.int64))
+    if not len(s):
+        return np.zeros(len(times), np.int64)
+    before = np.concatenate(([0], np.cumsum(e - s)))  # the pieces before piece k, covered
+    k = np.searchsorted(s, times, side="right")  # pieces that start by each time
+    last = np.maximum(k - 1, 0)
+    inside = np.clip(times - s[last], 0, e[last] - s[last])
+    return np.where(k > 0, before[last] + inside, 0)
 
 
 def union_ns(starts: np.ndarray, ends: np.ndarray) -> int:
     """Length of the union of the intervals [starts, ends)."""
-    if not len(starts):
-        return 0
-    order = np.argsort(starts, kind="stable")
-    s, e = starts[order], ends[order]
-    reach = np.maximum.accumulate(e)
-    # Each interval adds what it reaches beyond every earlier one.
-    prev = np.concatenate(([s[0]], reach[:-1]))
-    return int(np.sum(reach - np.maximum(s, prev)))
+    s, e = merged(starts, ends)
+    return int(np.sum(e - s))

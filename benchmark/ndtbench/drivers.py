@@ -10,7 +10,11 @@ configuration's ``entry``:
   running on.  A node with recovery on takes the configuration's
   ``recovery`` block, which must state the node's own parameters
   (:func:`recovery_block`); the run records the steps at which the node
-  accepted a relocalization.
+  accepted a relocalization.  A kidnap log's set-up plays
+  ``WARMUP_KIDNAPS`` kidnaps after the laps, so the relocalization's
+  kernels are built and loaded before the window; its untraced window on
+  the card records the card's busy time within each step (CUPTI, a mark
+  before each step).
 * ``solve_batch``: a batch matcher that keeps one ``solve_batch`` call in
   flight and needs each call's poses and costs on the host.  Set-up makes
   the pool of scan pairs, builds each world's map (the benchmark's own
@@ -21,10 +25,10 @@ configuration's ``entry``:
 
 Each driver returns a :class:`Run`: what the window measured (one duration
 per scan or call; for the node on the card, also CUPTI's busy time over
-the window), with ``trace`` the traced window's :class:`View` (the node
-then times a plain window after it), and a ``judge()`` that, after the
-program's state is freed, runs the reference over what the window
-produced.
+the window, and for a kidnap log within each step), with ``trace`` the
+traced window's :class:`View` (the node then times a plain window after
+it), and a ``judge()`` that, after the program's state is freed, runs the
+reference over what the window produced.
 """
 
 from __future__ import annotations
@@ -46,6 +50,14 @@ from ndtbench import cupti, synthetic, trace as T
 # call of B solves taking B/16 ms or more); a faster program wraps around
 # them, and repeats a key block's answers.
 CALLS_PER_SECOND_PER_16 = 1024
+# The most of a window's busy time that may lie in device records crossing
+# from one step into the next, whose split between the two steps is then
+# a matter of where the mark fell.
+CROSSING_MAX = 0.01
+# Kidnaps a kidnap log's set-up plays after its laps (one every
+# kidnap_every scans), so that the relocalization's kernels are built and
+# loaded before the window.
+WARMUP_KIDNAPS = 2
 
 
 @dataclasses.dataclass
@@ -64,6 +76,14 @@ class Run:
     # "timed_from": the step whose host time is durations[0].  None for
     # batch matching.
     events: Optional[dict] = None
+    # A kidnap log's untraced window on the card: the card's busy seconds
+    # within each step, as durations are taken (step timed_from + i).
+    step_busy_s: Optional[List[float]] = None
+
+
+def on_card(device) -> bool:
+    """Whether the node's untraced window records the card (CUPTI)."""
+    return torch.device(device).type == "cuda"
 
 
 def sync(device):
@@ -158,12 +178,16 @@ def run_node(cell, seed: int, seconds: float, trace: bool, device, t0: float) ->
         if node.state.recoveries != before:
             accepted.append(t)
 
-    for _ in range(int(p["warmup_laps"]) * n_lap):
+    kidnap_log = p["kind"] == "kidnap_log"
+    warmup = int(p["warmup_laps"]) * n_lap
+    if kidnap_log:  # the schedule's jumps begin after the laps
+        warmup += WARMUP_KIDNAPS * int(p["kidnap_every"])
+    for _ in range(warmup):
         step()
     sync(device)
     setup_s = time.perf_counter() - t0
     first = len(poses)
-    view, card_busy_s = None, None
+    view, card_busy_s, step_busy_s = None, None, None
     if trace:
         steps = int(p["trace_steps"])
 
@@ -182,17 +206,29 @@ def run_node(cell, seed: int, seconds: float, trace: bool, device, t0: float) ->
                         lambda name: "rollout_local" in name, "node", shape)
         # The host's rate and tail, per layer: a window with nothing recorded.
         durations, window_s = timed(step, seconds)
-    elif torch.device(device).type == "cuda":
+    elif on_card(device):
         # The card's busy time over the window: CUPTI records every device
         # operation (it slows the host's launches, not the card).
         clock = cupti.DeviceClock()
+        marked = (lambda: (clock.mark(), step())) if kidnap_log else step
         clock.start(lambda: sync(device))
-        durations, window_s = timed(step, seconds)
+        durations, window_s = timed(marked, seconds)
         clock.stop(lambda: sync(device))
         card_busy_s = clock.busy_s
         print(f"card: {clock.kernels} kernels, {clock.ops} device operations "
               f"({clock.left_out} untimed), busy {card_busy_s!r} s over {len(durations)} scans",
               file=sys.stderr)
+        if kidnap_log:
+            # Each step ends once its pose is on the host (pose.cpu()), so
+            # its device work ends inside it.
+            step_busy_s = clock.busy_between(clock.marks).tolist()
+            share = clock.crossing_share(clock.marks)
+            print(f"card: {len(clock.marks)} step marks, {share!r} of the busy time in "
+                  f"records across a mark (at most {CROSSING_MAX!r})", file=sys.stderr)
+            if len(step_busy_s) != len(durations) or share > CROSSING_MAX:
+                raise RuntimeError(f"the card's time per step cannot be told apart: "
+                                   f"{len(step_busy_s)} steps marked of {len(durations)}, "
+                                   f"{share!r} of the busy time across a mark")
     else:
         durations, window_s = timed(step, seconds)
     mem = peak(device)
@@ -232,7 +268,7 @@ def run_node(cell, seed: int, seconds: float, trace: bool, device, t0: float) ->
               "timed_from": timed_from}
     return Run(attempted=len(served) - first, durations=durations, window_s=window_s,
                setup_s=setup_s, view=view, memory_peak=mem, judge=judge, per_unit=1,
-               card_busy_s=card_busy_s, events=events)
+               card_busy_s=card_busy_s, events=events, step_busy_s=step_busy_s)
 
 
 # -------------------------------------------------------------------- batch

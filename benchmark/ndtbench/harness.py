@@ -29,7 +29,9 @@ class Context:
     """What a metric's reader reads: the window's durations and counts, and
     with ``--trace 1`` the traced window (``trace.View``), else None.
     ``events``: the node's kidnap and accepted-relocalization steps
-    (``drivers.Run.events``), None for batch matching."""
+    (``drivers.Run.events``), None for batch matching; ``step_busy_s``:
+    the card's busy seconds within each step of a kidnap log's untraced
+    window (``drivers.Run.step_busy_s``), else None."""
 
     kind: str
     units: int
@@ -40,6 +42,7 @@ class Context:
     trace: object
     card_busy_s: Optional[float] = None  # CUPTI's busy time over the window
     events: Optional[dict] = None
+    step_busy_s: Optional[List[float]] = None
 
 
 def forbidden_modules() -> List[str]:
@@ -76,7 +79,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device, t0: 
     chk = J.checks(numbers, limits)
     ctx = Context(kind=kind, units=run.attempted, per_unit=run.per_unit,
                   durations=run.durations, window_s=run.window_s, setup_s=run.setup_s,
-                  trace=run.view, card_busy_s=run.card_busy_s, events=run.events)
+                  trace=run.view, card_busy_s=run.card_busy_s, events=run.events,
+                  step_busy_s=run.step_busy_s)
     result = {
         "correct": J.passed(chk),
         "attempted": run.attempted,

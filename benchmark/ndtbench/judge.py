@@ -22,7 +22,8 @@ stencil cost of the node's cost mode.  Compared, each against its limit:
   pose's mean NDT score per valid beam, on the reference's map, lies below
   the reference's solve's;
 * ``fitness_gap``: the widest gap between the node's exact rescore (its
-  fitness) and the reference's score of the served pose;
+  fitness) and the reference's score of the served pose (with recovery
+  on, over the steps whose fitness float32 fixes: see below);
 * ``map_off_pct``: the share of the cells built on either side whose built
   flag, world mean (by more than 1e-4 m) or inverse covariance (by more
   than 1% of its norm) differ between the node's final map and the
@@ -49,7 +50,18 @@ judged apart:
 * ``accept_differ_pct``: the share of the sampled kidnaps at which the
   program and the reference differ on accepting a relocalization.
 
-The numbers above keep their meaning over the other sampled steps.
+The numbers above keep their meaning over the other sampled steps.  A
+kidnapped node's map gains cells of three or so points a few millimetres
+apart, whose regularized inverse (``ndtcell.cpp:93-111``: the determinant
+replaced, the adjugate kept) divides by ~1e-15: a float32 rounding of the
+covariance flips the sign of its weak axis, and a beam there scores
+exp(+large), up to infinity, in a sound float32 run where the float64
+reference scores sanely.  So with recovery on ``fitness_gap`` leaves out
+the steps whose fitness float32 does not fix: where a float32-sized
+error in each covariance entry of the cells the served pose's beams land
+in, on the reference's map, could move the fitness by more than
+``FIT_RESOLVED`` (:func:`fitness_spread`); the steps left out are reported
+(``fitness_left_out``).
 ``event_parted_pct`` (``parted_pct`` over the event steps) is reported
 (``"reported"``) and not compared: a sound relocalization's swarms end
 millimetres to centimetres from the float64 reference's, and now and then
@@ -91,6 +103,13 @@ from ndtbench import reference as R
 MEAN_TOL_M = 1e-4
 ICOV_RTOL = 1e-2
 RASTER_TOL = 1
+# A float32 error in a cell's covariance entries, as a share of the size of
+# its moments (fitness_spread): four times float32's epsilon (PERF.md §6
+# gives the steps it leaves out at one to 64 times).
+COV_EPS = 4 * 2.0 ** -23
+# The most by which that error may move a step's fitness for the step to
+# count in fitness_gap: a third of the limit.
+FIT_RESOLVED = 0.01
 
 
 def checks(numbers: Dict[str, float], limits: Dict[str, float]) -> Dict[str, dict]:
@@ -155,6 +174,43 @@ def node_fitness(grid: R.Grid, snap, pose, pts, valid):
     beam at ``pose``."""
     cost = R.exact_cost(pose, snap, grid, pts, valid)
     return -cost / valid.sum().clamp(min=1).to(cost.dtype)
+
+
+def fitness_spread(grid: R.Grid, snap, pose, pts, valid):
+    """How far an error δ in each covariance entry of the cells that the
+    beams at ``pose`` land in could move the fitness there, to first order;
+    δ is ``COV_EPS`` times the size of the cell's moments (its mean's
+    squared offset from the cell's centre plus its covariance's trace).
+    A cell's inverse Λ is its covariance Σ's adjugate over a determinant
+    D > 0 (``R.regularized_inverse``), which Λ's eigenvalues μ₁ <= μ₂ give
+    back, with Σ's λ₁ >= λ₂: where μ₁ < 1e-3·μ₂ the ratio was regularized,
+    D = 1e-3·λ₁², λ₁ = 1/(1e-3·μ₂), and D moves by a share ρ = 4δ/λ₁; else
+    D = λ₁λ₂ = 1/(μ₁μ₂) and ρ = 2δ(μ₁ + μ₂).  A beam's q = d'Λd then lies
+    within q(1 + ρ)^±1 ± e, e = δ(|dx| + |dy|)²/D through the adjugate; the
+    spread is the mean over the valid beams of the scores exp(-q/2) at the
+    two ends, the one less the other."""
+    mean, icov, built = snap
+    q = R.transform(pts, pose)
+    ix, iy, inb = grid.coords(q)
+    ok = inb & valid & (ix >= 0) & (ix < grid.width) & (iy >= 0) & (iy < grid.width)
+    idx = torch.where(ok, ix + grid.width * iy, 0)
+    ok = ok & built[idx]
+    lam, d = icov[idx], q - mean[idx]
+    a, b, c = lam[..., 0], lam[..., 1], lam[..., 2]
+    half_tr = (a + c) / 2.0
+    disc = torch.sqrt(torch.square((a - c) / 2.0) + torch.square(b))
+    mu1, mu2 = half_tr - disc, half_tr + disc
+    reg = mu1 < R.EIG_RATIO * mu2
+    inv_d = torch.where(reg, R.EIG_RATIO * mu2 * mu2, mu1 * mu2)
+    off = mean[idx] - grid.centers(idx, mean.dtype)
+    delta = COV_EPS * (torch.square(off).sum(-1) + (a + c) / inv_d)
+    rho = torch.where(reg, 4.0 * delta * R.EIG_RATIO * mu2, 2.0 * delta * (mu1 + mu2))
+    e = delta * torch.square(d[..., 0].abs() + d[..., 1].abs()) * inv_d
+    qd = R.quad(lam, d)
+    grow = torch.where(qd >= 0, 1.0 + rho, 1.0 / (1.0 + rho))
+    s = torch.exp(-0.5 * (qd / grow - e)) - torch.exp(-0.5 * (qd * grow + e))
+    s = torch.where(ok, s, torch.zeros((), dtype=s.dtype, device=s.device))
+    return float(s.sum() / valid.sum().clamp(min=1))
 
 
 def _deviation(served, t, dtype, device, motion=None):
@@ -244,6 +300,7 @@ def judge_node(lap, node_cfg: dict, parted: dict, seed: int, served_poses: np.nd
     want = set(int(t) for t in sample) | event_steps
     gaps = {"fitness_gap": 0.0}
     samples, event_samples, witnesses = [], [], []
+    left_out = []  # with recovery on, the steps whose fitness float32 does not fix
 
     def solve(t, snap, key, guess, pts_t, v, dtype):
         """The reference's answer at step t > 0 at ``dtype``: (pose,
@@ -286,8 +343,11 @@ def judge_node(lap, node_cfg: dict, parted: dict, seed: int, served_poses: np.nd
                     witnesses.append(_node_witness(
                         node_cfg, grid, snap, key, served, t, p, v, mine, cand,
                         _deviation(served, t, f64, device, motion)))
-                gaps["fitness_gap"] = (max(gaps["fitness_gap"], row[4]) if math.isfinite(row[4])
-                                       else float("nan"))
+                if rc is not None and not fitness_spread(grid, snap, cand, p, v) <= FIT_RESOLVED:
+                    left_out.append(t)
+                else:
+                    gaps["fitness_gap"] = (max(gaps["fitness_gap"], row[4])
+                                           if math.isfinite(row[4]) else float("nan"))
         v_in = torch.zeros_like(v) if degraded[t] else v  # a dead-reckoned scan stays out
         ref.ingest(served[t], p, v_in)
         if low is not None:
@@ -306,6 +366,8 @@ def judge_node(lap, node_cfg: dict, parted: dict, seed: int, served_poses: np.nd
     if ref.raster is not None and raster is not None:
         gaps["raster_off_pct"] = raster_off_pct(ref.raster.raster(), raster, device)
     reported = {}
+    if rc is not None:
+        reported["fitness_left_out"] = left_out
     if event_samples:
         gaps["event_xy_p75_m"] = p75(event_samples, 1)
         gaps["event_th_p75_rad"] = p75(event_samples, 2)

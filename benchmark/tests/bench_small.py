@@ -33,11 +33,14 @@ KIDNAP = {"config": {"node": {"recovery": True, "recovery_fitness_threshold": 0.
                               "recovery_hypotheses": 8},
                      "recovery": RECOVERY,
                      "limits": {"pose_xy_p75_m": 0.005, "parted_pct": 40.0,
-                                "event_xy_p75_m": 0.25, "event_th_p75_rad": 0.005,
+                                "event_xy_p75_m": 0.25, "event_th_p75_rad": 0.013,
                                 "event_score_gap_p75": 0.02, "accept_differ_pct": 25.0}},
           "traffic": {"kind": "kidnap_log", "kidnap_every": 10, "jump_scans": [15, 25],
                       "sample_events": 32}}
-CELLS = {"scan_launch.patrol": NODE, "batch_match.b256": BATCH, "batch_match.b16": BATCH}
+# scan_launch_recovery.kidnap is the patrol cell with KIDNAP's overrides in
+# files of its own (and two kidnaps in set-up): NODE makes it small.
+CELLS = {"scan_launch.patrol": NODE, "batch_match.b256": BATCH, "batch_match.b16": BATCH,
+         "scan_launch_recovery.kidnap": NODE}
 SEED = 3000000007  # above 2**31, as the driver's seeds are
 
 

@@ -43,7 +43,8 @@ def _tops(code):
 
 @pytest.mark.parametrize("workload,control,trace,more", [
     ("scan_launch.patrol", False, False, None), ("scan_launch.patrol", True, True, None),
-    ("scan_launch.patrol", False, False, "KIDNAP"), ("batch_match.b256", False, True, None),
+    ("scan_launch.patrol", False, False, "KIDNAP"),
+    ("scan_launch_recovery.kidnap", False, True, None), ("batch_match.b256", False, True, None),
     ("batch_match.b16", True, False, None)])
 def test_cell_loads_no_jax(workload, control, trace, more):
     assert workload in CELLS

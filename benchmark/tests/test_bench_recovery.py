@@ -2,10 +2,13 @@
 the traffic's schedule (``lap_log`` plays the lap in order, ``kidnap_log``
 carries the robot ahead now and then), the reference's relocalization held
 to the program's in float64, the set-up's check of the ``recovery`` block,
-and whole runs of the node through a kidnap log at small sizes, the program
-correct and two faults of its relocalization not."""
+whole runs of the node through a kidnap log at small sizes, the program
+correct and two faults of its relocalization not, and the card's time per
+step as the node's untraced window takes it (a stand-in for CUPTI's clock):
+marks for the kidnap cell only."""
 
 import dataclasses
+import math
 import time
 
 import numpy as np
@@ -205,6 +208,8 @@ def kidnap_run(monkeypatch, more=None, control=False):
 
     monkeypatch.setattr(cell, "read_metrics", spy)
     fixed_window(monkeypatch, STEPS)
+    # No kidnap in set-up: the window's four kidnaps follow the lap.
+    monkeypatch.setattr(drivers, "WARMUP_KIDNAPS", 0)
     r = bench_small.run("scan_launch.patrol", more=cell._merge(KIDNAP, more), control=control)
     return r, seen["ctx"]
 
@@ -213,10 +218,58 @@ def test_kidnap_run_is_correct(monkeypatch):
     r, ctx = kidnap_run(monkeypatch)
     assert r["correct"], r["checks"]
     assert all(name in r["checks"] for name in EVENT_NUMBERS)
+    assert "fitness_gap" in r["checks"]
     ev = ctx.events
     assert ev["kidnaps"] == [429, 439, 449, 459] and ev["timed_from"] == 420
     assert set(ev["kidnaps"]) & set(ev["accepted"])
     assert r["attempted"] == STEPS
+
+
+def test_an_infinite_fitness_is_not_correct(monkeypatch):
+    """One infinite fitness at a step whose fitness float32 fixes (step 2,
+    always sampled, on a map of two scans' cells) fails the run."""
+    from ndtpso_slam_tpu_torch.models import slam
+
+    step = slam.slam_step
+
+    def one_inf(state, *args):
+        new, pose, cost = step(state, *args)
+        if state.step == 2:
+            new = dataclasses.replace(new, fitness=torch.full_like(new.fitness, float("inf")))
+        return new, pose, cost
+
+    monkeypatch.setattr(slam, "slam_step", one_inf)
+    r, _ = kidnap_run(monkeypatch)
+    assert not r["correct"]
+    assert not math.isfinite(r["checks"]["fitness_gap"]["value"]), r["checks"]
+
+
+def _one_cell_map(points, dtype=torch.float64):
+    """A reference map whose one built cell holds ``points`` [n, 2] (world
+    metres, cell (40, 40) of a 40 m frame of 0.5 m cells)."""
+    grid = R.Grid(40.0, 0.5)
+    nmap = R.NdtMap(grid, 8, dtype, "cpu")
+    q = torch.as_tensor(points, dtype=dtype)
+    ids = nmap.add(q, torch.ones(q.shape[0], dtype=torch.bool))
+    nmap.build(ids)
+    return grid, nmap.snapshot()
+
+
+@pytest.mark.parametrize("spacing,fixed", [(0.02, True), (0.002, False)])
+def test_fitness_spread_leaves_out_a_cell_float32_cannot_fix(spacing, fixed):
+    """A wall's cell (points 2 cm apart on a line) fixes the score of a beam
+    5 mm off its mean; a cell of three points 2 mm apart on a line, whose
+    regularized inverse divides by ~1e-15, does not (PERF.md §6)."""
+    base = torch.tensor([0.12, 0.07], dtype=torch.float64)
+    along = torch.tensor([0.8, 0.6], dtype=torch.float64)
+    n = 12 if fixed else 3
+    pts = base + spacing * torch.arange(n, dtype=torch.float64)[:, None] * along
+    grid, snap = _one_cell_map(pts)
+    (cell,) = torch.nonzero(snap[2]).flatten().tolist()
+    beam = snap[0][cell] + 0.005 * along
+    spread = J.fitness_spread(grid, snap, torch.zeros(3, dtype=torch.float64), beam[None],
+                              torch.ones(1, dtype=torch.bool))
+    assert (spread <= J.FIT_RESOLVED) == fixed, spread
 
 
 def test_kidnap_control_is_not_correct(monkeypatch):
@@ -251,3 +304,104 @@ def test_relocalized_pose_moved(monkeypatch):
     assert ctx.events["accepted"]
     assert not r["correct"], r["checks"]
     assert any(r["checks"][k]["value"] > r["checks"][k]["limit"] for k in EVENT_NUMBERS)
+
+
+# -------------------------------------------- the card's time per kidnap step
+
+
+class StandInClock:
+    """``cupti.DeviceClock`` as ``run_node`` calls it, on the CPU: each mark
+    a tick, the card busy 2 ms in every step, ``crossing`` of that in
+    records across a mark."""
+
+    crossing = 0.0
+    made: list = []
+
+    def __init__(self):
+        self.marks, self.busy_s = [], None
+        self.kernels = self.ops = self.left_out = 0
+        StandInClock.made.append(self)
+
+    def start(self, sync):
+        sync()
+
+    def mark(self):
+        self.marks.append(len(self.marks))
+
+    def stop(self, sync):
+        sync()
+        if self.marks:
+            self.marks.append(len(self.marks))
+        self.busy_s = 0.04
+
+    def busy_between(self, marks):
+        return np.full(len(marks) - 1, 2e-3)
+
+    def crossing_share(self, marks):
+        return self.crossing
+
+
+def card_run(monkeypatch, workload, steps, crossing=0.0):
+    """``workload`` at its small size with its window ``steps`` steps, as
+    if on a card whose clock is a :class:`StandInClock`: (the result line,
+    the metrics' Context, the relocalizations run before the window and in
+    it)."""
+    from ndtpso_slam_tpu_torch.models import slam
+
+    StandInClock.made, StandInClock.crossing = [], crossing
+    monkeypatch.setattr(drivers, "on_card", lambda device: True)
+    monkeypatch.setattr(drivers.cupti, "DeviceClock", StandInClock)
+    relocalize, ran, seen = slam._relocalize, [], {}
+
+    def counted(*args):
+        ran.append(1)
+        return relocalize(*args)
+
+    monkeypatch.setattr(slam, "_relocalize", counted)
+
+    def timed(step, seconds):
+        seen["before"] = len(ran)
+        durations = []
+        for _ in range(steps):
+            t = time.perf_counter()
+            step()
+            durations.append(time.perf_counter() - t)
+        return durations, sum(durations)
+
+    monkeypatch.setattr(drivers, "timed", timed)
+    read = cell.read_metrics
+
+    def spy(metrics, ctx):
+        seen["ctx"] = ctx
+        return read(metrics, ctx)
+
+    monkeypatch.setattr(cell, "read_metrics", spy)
+    r = bench_small.run(workload)
+    return r, seen["ctx"], (seen["before"], len(ran) - seen["before"])
+
+
+def test_patrol_takes_no_marks(monkeypatch):
+    r, ctx, ran = card_run(monkeypatch, "scan_launch.patrol", 12)
+    (clock,) = StandInClock.made
+    assert clock.marks == [] and ctx.step_busy_s is None and ran == (0, 0)
+    assert set(r["metrics"]) == {"card_ms_per_scan", "setup_s"}
+    assert r["metrics"]["card_ms_per_scan"]["value"] == pytest.approx(0.04 / 12 * 1e3)
+
+
+def test_kidnap_cell_reads_each_kidnap_step(monkeypatch):
+    r, ctx, (before, inside) = card_run(monkeypatch, "scan_launch_recovery.kidnap", 20)
+    assert r["correct"], r["checks"]
+    (clock,) = StandInClock.made
+    assert len(clock.marks) == 21 and ctx.step_busy_s == [2e-3] * 20
+    # The lap, then two kidnaps in set-up (steps 429 and 439): the
+    # relocalization ran before the window; two kidnaps in the window.
+    ev = ctx.events
+    assert ev["timed_from"] == 440 and ev["kidnaps"] == [449, 459]
+    assert before >= 1 and inside >= 1
+    assert set(r["metrics"]) == {"card_ms_per_kidnap", "setup_s"}
+    assert r["metrics"]["card_ms_per_kidnap"]["value"] == pytest.approx(2.0)
+
+
+def test_steps_that_cannot_be_told_apart_fail_the_run(monkeypatch):
+    with pytest.raises(RuntimeError, match="across a mark"):
+        card_run(monkeypatch, "scan_launch_recovery.kidnap", 10, crossing=0.02)

@@ -116,3 +116,49 @@ def test_readers_find_nothing_without_spans(metric):
         assert read(_ctx(kind, DEVICE)) is None
         assert read(harness.Context(kind=kind, units=0, per_unit=1, durations=[],
                                     window_s=0.0, setup_s=0.0, trace=None)) is None
+
+
+def _kidnap_view(kernels, shape):
+    view = T.View(kind="node", units=4, window_s=1.0, plain_s=1.0, busy_s=0.0, kernels=kernels,
+                  device_ops=kernels, shape=shape, tries=1, breakdown={})
+    return harness.Context(kind="node", units=4, per_unit=1, durations=[], window_s=1.0,
+                           setup_s=1.0, trace=view,
+                           events={"kidnaps": [1, 3], "accepted": [1, 2, 3], "timed_from": 5})
+
+
+def test_kernels_per_kidnap_counts_within_kidnap_steps(monkeypatch):
+    sp = []
+    for step, t0 in ((0, 500.0), (1, 1000.0), (2, 1100.0), (3, 1200.0), (4, 1300.0)):
+        _scan(sp, step, t0)
+    monkeypatch.setattr(S, "recorded", lambda: sp)
+    # Steps 1 and 3 are kidnaps; step 0 lies before the device window.
+    starts = [1001.0, 1050.0, 1099.5, 1100.0, 1150.0, 1200.0, 1210.0, 1220.0, 1299.0, 1301.0]
+    ctx = _kidnap_view([("k", s, 0.5) for s in starts], {})
+    read = cell.reader("recovery.kernels_per_kidnap")
+    assert read(ctx) == pytest.approx((3 + 4) / 2)
+    # A kidnap step without an accepted relocalization is not read.
+    ctx.events = dict(ctx.events, accepted=[2, 3])
+    assert read(ctx) == pytest.approx(4)
+    ctx.events = dict(ctx.events, kidnaps=[0, 7])  # none in the window
+    assert read(ctx) is None
+    ctx.events = None
+    assert read(ctx) is None
+    monkeypatch.setattr(S, "recorded", lambda: [])
+    assert read(_kidnap_view([("k", s, 0.5) for s in starts], {})) is None
+
+
+def test_k3_roofline_is_the_bound_over_the_mean_launch():
+    from ndtbench import roofline
+
+    k3 = dict(batch=8, n_pts=384, population=128)
+    kernels = [("void (anonymous namespace)::score_kernel<15, 4>(float const*)", 10.0, 40.0),
+               ("void (anonymous namespace)::score_kernel<15, 4>(float const*)", 60.0, 60.0),
+               ("void rollout_local_kernel<1u>(...)", 200.0, 150.0)]
+    read = cell.reader("k3.roofline_pct")
+    bound_ms, _ = roofline.score_bound(**k3)
+    assert read(_kidnap_view(kernels, {"k3": k3})) == pytest.approx(100 * bound_ms / 0.05)
+    assert read(_kidnap_view(kernels, {})) is None  # recovery off: no K3 shape
+    assert read(_kidnap_view(kernels[2:], {"k3": k3})) is None  # no K3 launch
+    no_trace = _kidnap_view(kernels, {"k3": k3})
+    no_trace.trace = None
+    assert read(no_trace) is None
