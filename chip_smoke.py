@@ -129,8 +129,16 @@ their kernels-line entries carry the C each ran with (`cluster`).
       step at seven other keys (reported, not gated: ROADMAP R5), the
       event latency against one 10 Hz period, one event profiled, the peak
       memory, the healthy step with recovery on and off (poses bit-equal),
-      and the scoring kernel on the event's last call against its plain
-      version and float64, timed.
+      the scoring kernel on the event's last call against its plain
+      version and float64, timed, and each reloc_step launch's operands
+      (csrc/reloc_step.cu: the refine swarms' glue) against the PyTorch
+      binder and features at the same state (the mask bit for bit, w and
+      the features within RELOC_W_RTOL / RELOC_PHI_ATOL), the state after
+      each fold and each solve's result against pso_solve_batch fed the K3
+      costs the kernel folded (bit for bit), a solve through it against
+      the plain pso_solve_batch solve on the card (K3 in both; pose and
+      cost bit for bit), its device time per launch and per event, and the
+      two solves timed.
 
 8. The whole node (every option and container of the JAX node's single
    session):
@@ -185,8 +193,9 @@ their kernels-line entries carry the C each ran with (`cluster`).
       robot 3 gets the kidnapped scan, the others the healthy one; one
       accepted recovery within 7c's gate, the other robots' map rows
       bit-equal before and after the escalation, the launches (K1 once, K3
-      44 times, row_scatter 4), the event's wall time against the 100 ms
-      period, the escalation at 7c's other keys reported.
+      and reloc_step 44 times each, row_scatter 4), the event's wall time
+      against the 100 ms period, the escalation at 7c's other keys
+      reported.
 
 10. Multi-device and multi-process (parallel/runtime.py, distributed.py,
     the sharded entry points of mesh.py, multi_swarm.py and fleet.py), as
@@ -353,12 +362,14 @@ def phase_device():
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
-    from ndtpso_slam_tpu_torch.ops import (_build, ndt_ingest, probes, rollout, rollout_bisect,
-                                           rollout_local, row_scatter, score, score_variants)
+    from ndtpso_slam_tpu_torch.ops import (_build, ndt_ingest, probes, reloc_step, rollout,
+                                           rollout_bisect, rollout_local, row_scatter, score,
+                                           score_variants)
 
     t0 = time.perf_counter()
     paths = _build.build(rollout_local.LIB, rollout.LIB, score.LIB, score_variants.LIB,
-                         row_scatter.LIB, probes.LIB, rollout_bisect.LIB, ndt_ingest.LIB)
+                         row_scatter.LIB, probes.LIB, rollout_bisect.LIB, ndt_ingest.LIB,
+                         reloc_step.LIB)
     print(f"[phase 1] built {', '.join(p.name for p in paths)} in "
           f"{time.perf_counter() - t0:.2f} s")
     for path in paths:
@@ -1111,6 +1122,7 @@ def _packed(world, local=False):
 def _launch_counts():
     from ndtpso_slam_tpu_torch.ops import ndt_ingest as ni
     from ndtpso_slam_tpu_torch.ops import probes
+    from ndtpso_slam_tpu_torch.ops import reloc_step as rs
     from ndtpso_slam_tpu_torch.ops import rollout as ro
     from ndtpso_slam_tpu_torch.ops import rollout_bisect as rb
     from ndtpso_slam_tpu_torch.ops import rollout_local as rl
@@ -1122,7 +1134,8 @@ def _launch_counts():
                 score=sc.fused_bound_scores, score_variants=sv.score_variants,
                 score_block=sv.score_block, row_scatter=rsc.row_scatter,
                 io_probe=probes.io_probe, mosaic_probe=probes.mosaic_probe,
-                rollout_bisect=rb.rollout_bisect, ndt_ingest=ni.ndt_ingest)
+                rollout_bisect=rb.rollout_bisect, ndt_ingest=ni.ndt_ingest,
+                reloc_step=rs.reloc_step)
 
 
 def _reset_counts():
@@ -2710,14 +2723,21 @@ def phase_recovery(dev, window_slots=100):
     period, one event profiled, the peak device memory, and the healthy
     step with recovery on against off (poses bit-equal); then K3 on the
     operands of the event's last scoring call against its plain version
-    and float64, timed.  Returns K3's kernels-line entry."""
+    and float64, timed, and every reloc_step launch of the event held to
+    the PyTorch binder (_check_reloc_launches) and each fold to
+    pso_solve_batch fed the same K3 costs (_check_reloc_folds), a solve
+    through it bit for bit with the plain solve, timed per launch, per
+    event and per solve beside the plain solve.  Returns the kernels-line
+    entries of K3 and reloc_step."""
     import dataclasses
     from unittest import mock
 
     import torch
 
     from ndtpso_slam_tpu_torch import config as C
-    from ndtpso_slam_tpu_torch.models import cost, slam
+    from ndtpso_slam_tpu_torch.models import pso, slam
+    from ndtpso_slam_tpu_torch.models.scan import Scan
+    from ndtpso_slam_tpu_torch.ops import reloc_step as rs
     from ndtpso_slam_tpu_torch.ops import score as sc
 
     cfg, st, healthy, kidnapped, kid_pose = reloc_launch_world(dev, window_slots)
@@ -2732,7 +2752,8 @@ def phase_recovery(dev, window_slots=100):
     counts = _read_counts()
     peak = torch.cuda.max_memory_allocated() - base
     evals = 2 * (rc.pso.iterations + 2)
-    want = {n: {"rollout_local": 1, "score": evals, "ndt_ingest": 1}.get(n, 0) for n in counts}
+    want = {n: {"rollout_local": 1, "score": evals, "reloc_step": evals, "ndt_ingest": 1}.get(n, 0)
+            for n in counts}
     check(counts == want, f"kidnapped step: launches {counts}, expected {want}")
     err = _kidnap_err(pose, kid_pose)
     check(new.recoveries == 1 and all(e < g for e, g in zip(err, KIDNAP_GATE)),
@@ -2766,15 +2787,29 @@ def phase_recovery(dev, window_slots=100):
           f"{all(r == 1 for _, r, _, _ in sweep)}; (key, recoveries, within, max xy err m): "
           f"{[(k, r, ok, round(e, 4)) for k, r, ok, e in sweep]}")
 
-    # K3 on the operands of the event's last scoring call.
-    seen, real = [], cost.fused_bound_scores
+    # K3 on the operands of the event's last scoring call; every
+    # reloc_step launch's operands and state, and the costs it folded.
+    seen, costs, launches, real, real_launch = [], [], [], rs.fused_bound_scores, rs._launch
 
     def recording(*ops):
         seen.append(tuple(t.clone() for t in ops))
-        return real(*ops)
+        out = real(*ops)
+        costs.append(out.clone())
+        return out
 
-    with mock.patch.object(cost, "fused_bound_scores", recording):
+    def recording_launch(sw, phase, *args, **kwargs):
+        real_launch(sw, phase, *args, **kwargs)
+        if phase != rs.FINAL:
+            launches.append((sw, phase) + tuple(t.clone() for t in (sw.state, sw.phit_seed,
+                                                                    sw.phit, sw.w, sw.mask)))
+
+    with mock.patch.object(rs, "fused_bound_scores", recording), \
+            mock.patch.object(rs, "_launch", recording_launch):
         slam.slam_step(_fresh(st), kidnapped, KIDNAP_KEY, cfg)
+    # Every reloc_step launch writes K3's operands but each solve's final.
+    check(len(seen) == evals and len(launches) == evals - 2,
+          f"recorded {len(seen)} K3 calls and {len(launches)} reloc_step launches with operands, "
+          f"expected {evals} and {evals - 2}")
     ops = seen[-1]
     b, f, p = ops[0].shape
     derr = _check_score(ops, "7c", f"B={b} N={ops[1].shape[1]} P={p}, the event's last call")
@@ -2784,9 +2819,167 @@ def phase_recovery(dev, window_slots=100):
     print(f"[phase 7c] K3 in recovery: kernel {ms_k:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{bnd[0]:.6f} ms ({bnd[1]}, {100 * bnd[0] / ms_k:.1f}% of it); {counts['score']} "
           f"launches per event")
-    return _entry("score_recovery", SRC + "score.cu", "ndtpso_slam_tpu/ops/pallas_score.py:41",
-                  counts["score"], derr, ms_k, plain_ms, bnd, event_ms=event_ms,
-                  peak_mib=peak / 2**20)
+    k3 = _entry("score_recovery", SRC + "score.cu", "ndtpso_slam_tpu/ops/pallas_score.py:41",
+                counts["score"], derr, ms_k, plain_ms, bnd, event_ms=event_ms,
+                peak_mib=peak / 2**20)
+
+    # reloc_step: each launch against the PyTorch binder and features, each
+    # solve's state against pso_solve_batch fed the same K3 costs; a solve
+    # through it against the plain pso_solve_batch solve (K3 in both), bit
+    # for bit; its device time per launch and per event, and the two solves
+    # timed, per evaluation.
+    dw, dphi, w_equal = _check_reloc_launches(launches)
+    n_folds = _check_reloc_folds(launches, costs)
+    sw0 = launches[0][0]
+    args = (sw0.keys, sw0.guesses, sw0.deviation, sw0.tbl, sw0.anchor, sw0.ps, sw0.points,
+            sw0.valid, sw0.map_cfg, sw0.pso_cfg)
+    devs = torch.tensor(sw0.deviation, dtype=torch.float32, device=dev).expand(len(sw0.guesses), 3)
+    plain_cost = slam._refine_cost(sw0.tbl, sw0.anchor, sw0.ps, Scan(sw0.points, sw0.valid), cfg)
+    got = rs.refine_solve(*args)
+    want = pso.pso_solve_batch(sw0.keys, sw0.guesses, devs, plain_cost, rc.pso)
+    check(torch.equal(got[0], want.pose) and torch.equal(got[1], want.cost),
+          f"reloc_step: the refine's first solve {got[0].tolist()} {got[1].tolist()}, "
+          f"pso_solve_batch on the PyTorch binder {want.pose.tolist()} {want.cost.tolist()}")
+    s = _fresh(st)
+    n_rs, rs_busy_ms, _ = _profile(lambda: slam.slam_step(s, kidnapped, KIDNAP_KEY, cfg),
+                                   "reloc_step_kernel")
+    sw = rs.reloc_init(*args)
+    seed_cost = sc.fused_bound_scores(sw.phit_seed, sw.w, sw.mask)
+    last_cost = sc.fused_bound_scores(sw.phit, sw.w, sw.mask)
+    rs.reloc_step(sw, 0, last_cost, seed_cost)
+    ms_rs = _events_ms(lambda: rs.reloc_step(sw, 1, last_cost), 50)
+    solve_ms = _events_ms(lambda: rs.refine_solve(*args), 10)
+    plain_solve_ms = _events_ms(
+        lambda: pso.pso_solve_batch(sw0.keys, sw0.guesses, devs, plain_cost, rc.pso), 5)
+    per_eval = rc.pso.iterations + 2
+    plain_rs = plain_solve_ms / per_eval - ms_k  # the plain glue of one evaluation
+    b, p, n = len(sw.guesses), rc.pso.population, sw.points.shape[0]
+    bnd_rs = bound(_reloc_step_bytes(b, p, n), int32=b * p * 3 * THREEFRY_INT_OPS)
+    per_launch = rs_busy_ms / max(n_rs, 1)
+    print(f"[phase 7c] reloc_step (B={b} P={p} N={n}, window {sw.ps}): each of the event's "
+          f"{len(launches)} launches' masks bit for bit with the PyTorch binder's, w within "
+          f"{dw:.3e} of its largest coefficient ({100 * w_equal:.2f}% bit-equal), features within "
+          f"{dphi:.3e}; the state after each of its {n_folds} folds and both solves' results bit "
+          f"for bit with pso_solve_batch fed the same K3 costs; the first solve bit for bit with "
+          f"pso_solve_batch on the PyTorch binder; a step launch {ms_rs:.4f} ms (CUDA events), device busy "
+          f"{per_launch:.4f} ms per recorded launch ({n_rs} of {counts['reloc_step']} recorded), "
+          f"{per_launch * counts['reloc_step']:.4f} ms per event; bound {bnd_rs[0]:.6f} ms "
+          f"({bnd_rs[1]}); a solve of {per_eval} "
+          f"evaluations {solve_ms:.3f} ms through it, {plain_solve_ms:.3f} ms plain "
+          f"(pso_solve_batch, K3 in both): the plain glue {plain_rs:.4f} ms an evaluation")
+    reloc = _entry("reloc_step", SRC + "reloc_step.cu", "none: the JAX refine's glue, left to XLA",
+                   counts["reloc_step"], dw, ms_rs, plain_rs, bnd_rs, device_ms=per_launch,
+                   event_device_ms=per_launch * counts["reloc_step"],
+                   solve_ms=solve_ms, plain_solve_ms=plain_solve_ms)
+    return [k3, reloc]
+
+
+# reloc_step's operands against the PyTorch binder: w within this share of
+# each point's largest coefficient (the cancelling terms of BᵀΛB), the
+# features within this absolute error.
+RELOC_W_RTOL = 1e-5
+RELOC_PHI_ATOL = 1e-6
+
+
+def _reloc_step_bytes(b, p, n):
+    """The bytes one reloc_step launch must move: the state read and
+    written, K3's costs, the N table rows each swarm binds, the points, and
+    the features, w and mask written."""
+    return 4.0 * (2 * b * (10 * p + 4) + b * p + 6 * b * n + 15 * b * p + 15 * b * n + b * n) \
+        + 9.0 * n
+
+
+def _check_reloc_folds(launches, costs):
+    """Each solve of the event's refine (the recorded launches of one
+    Swarms: its init, then each step) against pso_solve_batch fed the K3
+    costs that solve folded (``costs``, I + 2 a solve, in launch order): the
+    poses it scores and the global best it binds at each evaluation, and
+    its result, bit for bit.  This holds the folds (strict <, first minimal
+    index, the NaN rule), the draws and the update to the plain solver, at
+    the kernel's own costs.  Returns the number of folds checked."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.models import pso
+
+    solves = []
+    for rec in launches:
+        if not any(rec[0] is sw for sw in solves):
+            solves.append(rec[0])
+    folds = 0
+    for j, sw in enumerate(solves):
+        recs = [rec for rec in launches if rec[0] is sw]
+        b, p, it = len(sw.guesses), sw.pso_cfg.population, sw.pso_cfg.iterations
+        mine = costs[j * (it + 2):(j + 1) * (it + 2)]
+        check(len(recs) == it + 1 and len(mine) == it + 2,
+              f"solve {j}: {len(recs)} launches and {len(mine)} K3 costs, expected {it + 1} and "
+              f"{it + 2}")
+        seen = []
+
+        def cost_fn(poses, binds):
+            seen.append((poses.clone(), binds.clone()))
+            return mine[len(seen) - 1]
+
+        devs = torch.tensor(sw.deviation, dtype=torch.float32,
+                            device=sw.guesses.device).expand(b, 3)
+        res = pso.pso_solve_batch(sw.keys, sw.guesses, devs, cost_fn, sw.pso_cfg)
+        check(len(seen) == it + 2, f"solve {j}: pso_solve_batch made {len(seen)} evaluations")
+        unpack = lambda state: (state[:, :3 * p].reshape(b, 3, p).transpose(1, 2),
+                                state[:, 10 * p:10 * p + 3])
+        pos0, gbest0 = unpack(recs[0][2])
+        check(torch.equal(seen[0][0][:, 0], gbest0) and torch.equal(seen[1][0], pos0),
+              f"solve {j}: the init's seeds or population differ from pso_solve_batch's")
+        for i in range(it):
+            pos, gbest = unpack(recs[i + 1][2])
+            check(torch.equal(seen[i + 2][0], pos) and torch.equal(seen[i + 2][1], gbest),
+                  f"solve {j}: the state after fold {i} differs from pso_solve_batch's")
+        check(torch.equal(sw.pose, res.pose) and torch.equal(sw.cost, res.cost),
+              f"solve {j}: result {sw.pose.tolist()} {sw.cost.tolist()}, pso_solve_batch's "
+              f"{res.pose.tolist()} {res.cost.tolist()}")
+        folds += it + 1
+    check(len(solves) == 2, f"{len(solves)} solves recorded, expected the refine's 2")
+    return folds
+
+
+def _check_reloc_launches(launches):
+    """Each recorded reloc_step launch (the Swarms, its phase, then clones
+    of its state, features, w and mask) against the PyTorch binder and
+    pose_features_t at the bind pose the launch used (the guesses at the
+    init, else the global best after the fold): the mask bit for bit, w
+    within RELOC_W_RTOL of each point's largest coefficient, the features
+    within RELOC_PHI_ATOL.  Returns (the largest w error, the largest
+    feature error, the share of w bit-equal)."""
+    import torch
+
+    from ndtpso_slam_tpu_torch.models import cost
+    from ndtpso_slam_tpu_torch.ops import reloc_step as rs
+
+    dw = dphi = 0.0
+    equal = total = 0
+    for sw, phase, state, phit_seed, phit, w, mask in launches:
+        b, p = state.shape[0], sw.pso_cfg.population
+        pos = state[:, :3 * p].reshape(b, 3, p).transpose(1, 2)
+        gbest = state[:, 10 * p:10 * p + 3]
+        bind = sw.guesses if phase == rs.INIT else gbest
+        if sw.ps:
+            origin = cost.window_origin(sw.anchor, sw.ps, sw.map_cfg)
+            ref = cost.bind_points_matmul_window(
+                bind, cost.table_window(sw.tbl, origin, sw.ps, sw.map_cfg), origin, sw.ps,
+                sw.points, sw.valid, sw.map_cfg)
+        else:
+            ref = cost.bind_points_matmul(bind, sw.tbl, sw.points, sw.valid, sw.map_cfg)
+        check(torch.equal(mask, ref.mask), "reloc_step: a launch's mask differs from the binder's")
+        scale = ref.w.abs().amax(dim=-1, keepdim=True).clamp(min=1e-30)
+        dw = max(dw, ((w - ref.w).abs() / scale).max().item())
+        equal += int((w == ref.w).sum())
+        total += w.numel()
+        dphi = max(dphi, (phit - cost.pose_features_t(pos, bind)).abs().max().item())
+        if phase == rs.INIT:
+            seed = cost.pose_features_t(gbest[:, None], bind)
+            dphi = max(dphi, (phit_seed - seed).abs().max().item())
+    check(dw <= RELOC_W_RTOL and dphi <= RELOC_PHI_ATOL,
+          f"reloc_step: w {dw:.3e} (limit {RELOC_W_RTOL}), features {dphi:.3e} (limit "
+          f"{RELOC_PHI_ATOL}) from the PyTorch binder's")
+    return dw, dphi, equal / max(total, 1)
 
 
 # ---------------------------------------------------------------- phase 8
@@ -3565,7 +3758,8 @@ def phase_fleet_recovery(dev, window_slots=100):
           f"(gate {KIDNAP_GATE})")
     check(seen["untouched"], "9c: the escalation wrote another robot's map rows")
     evals = 2 * (cfg.recovery.pso.iterations + 2)
-    want = {n: {"rollout_local": 1, "score": evals, "row_scatter": 4}.get(n, 0) for n in counts}
+    want = {n: {"rollout_local": 1, "score": evals, "reloc_step": evals, "row_scatter": 4}.get(n, 0)
+            for n in counts}
     check(counts == want, f"9c: launches {counts}, expected {want}")
     # The escalation at other keys, on the kidnapped robot's views (the
     # pool's state after the step), reported.
@@ -4607,7 +4801,7 @@ def main() -> int:
     kernels.append(phase_reloc_c2(reloc))
     phase_chooser(reloc, main_inputs, step_p50)
     del reloc
-    kernels.append(phase_recovery(torch.device("cuda")))
+    kernels.extend(phase_recovery(torch.device("cuda")))
     print(f"[phase 7] wall {time.perf_counter() - t0:.1f} s")
     kernels.append(phase_whole_node(lg, world))
     kernels.extend(phase_fleets_sessions(torch.device("cuda")))

@@ -54,7 +54,7 @@ from ndtpso_slam_tpu_torch.models import cost as cost_mod
 from ndtpso_slam_tpu_torch.models import ndt_map, occupancy
 from ndtpso_slam_tpu_torch.models.pso import OPTIMIZERS, PsoResult, _select_min, pso_solve_batch
 from ndtpso_slam_tpu_torch.models.scan import Scan
-from ndtpso_slam_tpu_torch.ops import rng
+from ndtpso_slam_tpu_torch.ops import reloc_step, rng
 from ndtpso_slam_tpu_torch.ops.rollout import solve_rollout_mode
 from ndtpso_slam_tpu_torch.utils import profiling
 
@@ -284,8 +284,9 @@ def _relocalize(key, snap: ndt_map.MapSnapshot, scan: Scan, last_pose: torch.Ten
 
     The binder reads a ``patch_cells`` window around the last pose where the
     window is smaller than the grid (``cost.bind_points_matmul_window``).  On
-    a CUDA device stages 2-3 score through the fused scoring kernel
-    (``cost.bound_cost_fused``); on the CPU through ``cost.bound_cost``.
+    a CUDA device stages 2-3 run through ``ops/reloc_step.py``'s kernel and
+    the fused scoring kernel; on the CPU through ``pso_solve_batch`` and
+    ``cost.bound_cost``.
     key: (k0, k1) u32 words.  Returns (pose [3], exact cost [])."""
     rc = cfg.recovery
     dtype, dev = last_pose.dtype, last_pose.device
@@ -312,42 +313,56 @@ def _relocalize(key, snap: ndt_map.MapSnapshot, scan: Scan, last_pose: torch.Ten
     return _refine_hypotheses(key, snap, scan, last_pose, hypo, cfg)
 
 
+def _refine_cost(tbl: torch.Tensor, last_pose: torch.Tensor, ps: int, scan: Scan, cfg: SlamConfig):
+    """The frozen cost of the refine swarms (poses [B, P, 3], binds [B, 3])
+    -> [B, P]: the scan rebound at each swarm's incumbent against the
+    ``ps`` x ``ps`` window of the [C, 6] table around ``last_pose``'s cell,
+    or the whole table with ``ps`` 0, then scored."""
+    if ps:
+        origin = cost_mod.window_origin(last_pose, ps, cfg.map)
+        patch = cost_mod.table_window(tbl, origin, ps, cfg.map)
+        return lambda poses, binds: cost_mod.bound_cost_fused(
+            poses, cost_mod.bind_points_matmul_window(
+                binds, patch, origin, ps, scan.points, scan.valid, cfg.map))
+    return lambda poses, binds: cost_mod.bound_cost_fused(
+        poses, cost_mod.bind_points_matmul(binds, tbl, scan.points, scan.valid, cfg.map))
+
+
 def _refine_hypotheses(key, snap: ndt_map.MapSnapshot, scan: Scan, last_pose: torch.Tensor,
                        hypo: torch.Tensor, cfg: SlamConfig):
     """Stages 2-3 of :func:`_relocalize` on the hypotheses [K, 3]: refine,
-    polish, then the exact-cost winner (pose [3], cost [])."""
+    polish, then the exact-cost winner (pose [3], cost []).
+
+    On a CUDA device each solve is I + 2 launches of ``ops/reloc_step.py``'s
+    kernel (draws, update, folds, the rebind and the features), each
+    followed by the fused scoring kernel but the last; on the CPU it is
+    ``pso_solve_batch`` on :func:`_refine_cost`, the plain version."""
     rc = cfg.recovery
     dtype, dev = last_pose.dtype, last_pose.device
     k = hypo.shape[0]
     # The window binder, rebound at each swarm's incumbent.
     w_cells = cfg.map.cells_per_side
     ps = rc.patch_cells if 0 < rc.patch_cells < w_cells else 0
-    if ps:
-        origin = cost_mod.window_origin(last_pose, ps, cfg.map)
+    if dev.type == "cuda":
+        anchor = last_pose.contiguous()
 
-        def make_cost(tbl):
-            patch = cost_mod.table_window(tbl, origin, ps, cfg.map)
-            return lambda poses, binds: cost_mod.bound_cost_fused(
-                poses, cost_mod.bind_points_matmul_window(
-                    binds, patch, origin, ps, scan.points, scan.valid, cfg.map))
+        def solve(keys, guesses, deviation, tbl):
+            return reloc_step.refine_solve(keys, guesses, deviation, tbl, anchor, ps, scan.points,
+                                           scan.valid, cfg.map, rc.pso)[0]
     else:
-        def make_cost(tbl):
-            return lambda poses, binds: cost_mod.bound_cost_fused(
-                poses, cost_mod.bind_points_matmul(binds, tbl, scan.points, scan.valid, cfg.map))
+        def solve(keys, guesses, deviation, tbl):
+            devs = torch.tensor(deviation, dtype=dtype).to(dev).expand(k, 3)
+            cost_fn = _refine_cost(tbl, last_pose, ps, scan, cfg)
+            return pso_solve_batch(keys, guesses, devs, cost_fn, rc.pso).pose
 
     rk = rng.threefry2x32(key, 0x5EC0, 0xFA11)
     ids = torch.arange(k, dtype=torch.int64)
     swarm_keys = lambda c0, c1: torch.stack(rng.threefry2x32(rk, c0, c1), dim=-1)
     refine_snap = ndt_map.smooth_snapshot(snap, rc.refine_sigma) if rc.refine_sigma > 0 else snap
-    expand = lambda v: torch.tensor(v, dtype=dtype).to(dev).expand(k, 3)
-    refined = pso_solve_batch(
-        swarm_keys(ids, torch.full_like(ids, 0x5117)), hypo, expand(rc.deviation),
-        make_cost(cost_mod.snapshot_table(refine_snap)), rc.pso,
-    ).pose
-    polished = pso_solve_batch(
-        swarm_keys(ids + 0x907, torch.full_like(ids, 0x13)), refined, expand((0.1, 0.1, 0.05)),
-        make_cost(cost_mod.snapshot_table(snap)), rc.pso,
-    ).pose
+    refined = solve(swarm_keys(ids, torch.full_like(ids, 0x5117)), hypo, rc.deviation,
+                    cost_mod.snapshot_table(refine_snap))
+    polished = solve(swarm_keys(ids + 0x907, torch.full_like(ids, 0x13)), refined,
+                     (0.1, 0.1, 0.05), cost_mod.snapshot_table(snap))
     final = cost_mod.ndt_cost(polished, snap, scan.points, scan.valid, cfg.map)
     best_cost, best_pose = _select_min(final, polished)
     return best_pose.to(dtype), best_cost.to(dtype)

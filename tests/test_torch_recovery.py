@@ -23,9 +23,10 @@ Tolerances, with their reasons:
   8-scan maps (integer fields equal, sums within 1e-5 of each field's
   largest magnitude) and the poses through the relocalization.
 
-The ``gpu`` tests (stages 2-3 through the fused scoring kernel; a
-recovery-off step under sync debug mode) skip here.  The GPU machine has no
-JAX: ``python -m pytest --noconftest -m gpu tests/test_torch_recovery.py``.
+The ``gpu`` tests (stages 2-3 through the refine's kernel and the fused
+scoring kernel; a recovery-off step under sync debug mode) skip here.  The
+GPU machine has no JAX:
+``python -m pytest --noconftest -m gpu tests/test_torch_recovery.py``.
 """
 
 import dataclasses
@@ -40,6 +41,7 @@ from ndtpso_slam_tpu_torch.models import cost as tcost
 from ndtpso_slam_tpu_torch.models import ndt_map as tmap
 from ndtpso_slam_tpu_torch.models import scan as tscan
 from ndtpso_slam_tpu_torch.models import slam as tslam
+from ndtpso_slam_tpu_torch.ops import reloc_step as treloc
 from ndtpso_slam_tpu_torch.ops import rng as trng
 from ndtpso_slam_tpu_torch.ops import score as tscore
 from ndtpso_slam_tpu_torch.utils.state import slam_state_from_numpy, slam_state_to_numpy
@@ -539,31 +541,34 @@ def _before_kidnap():
 @pytest.mark.gpu
 def test_refine_hypotheses_through_k3_on_gpu(cuda_device):
     """Stages 2-3 on the card score through the fused scoring kernel (one
-    launch per cost evaluation, 2 x (I + 2)); each launch is held to the
-    plain version on its operands by the float64 rule; the winner lands
-    where the CPU path's does, at the frozen-solve tolerance."""
+    launch per cost evaluation, 2 x (I + 2)), each after a launch of the
+    refine's kernel (ops/reloc_step.py); each K3 launch is held to the plain
+    version on its operands by the float64 rule; the winner lands where the
+    CPU path's does, at the frozen-solve tolerance."""
     cfg, state, snap, scan, hypo = _before_kidnap()
     want_pose, want_cost = tslam._refine_hypotheses(trng.derive_key(KEY, 8), snap, scan,
                                                     state.pose, hypo, cfg)
     to = lambda t: t.to(cuda_device)
     gsnap = tmap.MapSnapshot(to(snap.mean), to(snap.inv_cov), to(snap.built))
     gscan = tscan.Scan(points=to(scan.points), valid=to(scan.valid))
-    seen, real = [], tcost.fused_bound_scores
+    seen, real = [], treloc.fused_bound_scores
 
     def recording(*ops):
         seen.append(tuple(t.clone() for t in ops))
         return real(*ops)
 
     before = tscore.fused_bound_scores.LAUNCHES
-    tcost.fused_bound_scores = recording
+    before_reloc = treloc.reloc_step.LAUNCHES
+    treloc.fused_bound_scores = recording
     try:
         pose, cost = tslam._refine_hypotheses(trng.derive_key(KEY, 8), gsnap, gscan,
                                               to(state.pose), to(hypo), cfg)
         torch.cuda.synchronize()
     finally:
-        tcost.fused_bound_scores = real
+        treloc.fused_bound_scores = real
     evals = 2 * (cfg.recovery.pso.iterations + 2)
     assert tscore.fused_bound_scores.LAUNCHES == before + evals == before + len(seen)
+    assert treloc.reloc_step.LAUNCHES == before_reloc + evals
     for ops in seen:
         got = tscore.fused_bound_scores(*ops)
         plain = tscore.fused_bound_scores_reference(*ops)
