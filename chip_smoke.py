@@ -453,7 +453,7 @@ def _pack(snap, mc, guesses, points, valid):
 
 def _pack_local(snaps, mc, guesses, points, valid, radius=None):
     """K1's packed inputs for B solves on per-solve snapshots, as
-    ops/rollout.py:solve_rollout_mode packs them, with a stencil of
+    models/solve.py:solve_rollout_mode packs them, with a stencil of
     (2 radius + 1)^2 cells (default: the cost modes' radius)."""
     from ndtpso_slam_tpu_torch.models import cost
     from ndtpso_slam_tpu_torch.ops import rollout_local as rl
@@ -3333,19 +3333,18 @@ def _steps(scans, t):
 @contextlib.contextmanager
 def _solves_logged(kernel):
     """Within: the fleet's and the solo step's calls of solve_rollout_mode
-    (ops/rollout.py) recorded: log["cs"] the cluster size of each call's
+    (models/solve.py) recorded: log["cs"] the cluster size of each call's
     launch (``kernel.LAST_CLUSTER``), log["args"] the last call's
     arguments."""
     from unittest import mock
 
-    from ndtpso_slam_tpu_torch.models import slam
-    from ndtpso_slam_tpu_torch.ops import rollout as ro
+    from ndtpso_slam_tpu_torch.models import slam, solve
     from ndtpso_slam_tpu_torch.parallel import fleet
 
     log = {"cs": [], "args": None}
 
     def recording(*args):
-        out = ro.solve_rollout_mode(*args)
+        out = solve.solve_rollout_mode(*args)
         log["cs"].append(kernel.LAST_CLUSTER)
         log["args"] = args
         return out
@@ -3932,6 +3931,7 @@ def _rank_swarms(mesh, x):
 
     import torch
 
+    from ndtpso_slam_tpu_torch.models import solve
     from ndtpso_slam_tpu_torch.ops import rollout as ro
     from ndtpso_slam_tpu_torch.parallel import multi_swarm as ms
     from ndtpso_slam_tpu_torch.parallel import runtime
@@ -3946,7 +3946,7 @@ def _rank_swarms(mesh, x):
     every, dcn_every = DIST_EXCHANGE
 
     def recording(*args):
-        res = ro.solve_rollout_mode(*args)
+        res = solve.solve_rollout_mode(*args)
         solved.append(res[0])
         return res
     for name, run in (

@@ -52,10 +52,11 @@ import torch
 from ndtpso_slam_tpu_torch.config import RECOVERY_AUTO_STRIDE_MIN_CELLS, SlamConfig, resolve_device
 from ndtpso_slam_tpu_torch.models import cost as cost_mod
 from ndtpso_slam_tpu_torch.models import ndt_map, occupancy
+from ndtpso_slam_tpu_torch.models import solve as solve_mod
 from ndtpso_slam_tpu_torch.models.pso import OPTIMIZERS, PsoResult, _select_min, pso_solve_batch
 from ndtpso_slam_tpu_torch.models.scan import Scan
-from ndtpso_slam_tpu_torch.ops import reloc_step, rng
-from ndtpso_slam_tpu_torch.ops.rollout import solve_rollout_mode
+from ndtpso_slam_tpu_torch.models.solve import solve_rollout_mode
+from ndtpso_slam_tpu_torch.ops import _build, reloc_step, rng
 from ndtpso_slam_tpu_torch.utils import profiling
 
 
@@ -103,12 +104,9 @@ def init_slam(cfg: SlamConfig, initial_pose=(0.0, 0.0, 0.0), device="cuda") -> S
     )
 
 
-# The JAX package's cost modes (models/slam.py:SLAM_COST_MODES).
-SLAM_COST_MODES = (
-    "exact", "fast", "fast_local", "local_exact",
-    "rollout", "rollout_bf16", "rollout_turbo", "rollout_turbo_bf16",
-    "rollout_local", "rollout_local_turbo",
-)
+# The JAX package's cost modes (models/slam.py:SLAM_COST_MODES): the node's
+# modes of models/solve.py:MODES.
+SLAM_COST_MODES = solve_mod.NODE_MODES
 
 
 def validate_config(cfg: SlamConfig) -> None:
@@ -116,63 +114,16 @@ def validate_config(cfg: SlamConfig) -> None:
     unknown cost mode or optimizer, or GLIR with a ``rollout*`` mode (the
     whole-solve kernels run the deployed PSO update rule only; the JAX
     package raises this in ``align``, ``slam.py:199-204``)."""
-    if cfg.cost_mode not in SLAM_COST_MODES:
-        raise ValueError(
-            f"unknown cost_mode {cfg.cost_mode!r}; expected one of {SLAM_COST_MODES}"
-        )
-    if cfg.optimizer not in OPTIMIZERS:
-        raise ValueError(f"unknown optimizer {cfg.optimizer!r}; expected 'pso' | 'glir'")
-    if cfg.cost_mode.startswith("rollout") and cfg.optimizer != "pso":
-        raise ValueError(
-            "rollout cost modes implement the deployed PSO update rule "
-            f"only; optimizer={cfg.optimizer!r} needs a plain cost mode"
-        )
-
-
-def make_cost_fn(snap: ndt_map.MapSnapshot, scan: Scan, cfg: SlamConfig, guess=None):
-    """Batched cost closure for the solver, per the configured cost mode
-    (the modes that do not run a whole-solve kernel)."""
-    if cfg.cost_mode == "exact":
-        return lambda poses, bind: cost_mod.ndt_cost(
-            poses, snap, scan.points, scan.valid, cfg.map
-        )
-    if cfg.cost_mode == "fast":
-        return lambda poses, bind: cost_mod.bound_cost(
-            poses, cost_mod.bind_points(bind, snap, scan.points, scan.valid, cfg.map)
-        )
-    if cfg.cost_mode == "fast_local":
-        # The stencil gathered once at the guess; the incumbent rebinds
-        # within it every iteration.
-        nbr = cost_mod.bind_neighborhood(
-            guess, snap, scan.points, scan.valid, cfg.map,
-            radius=cost_mod.DEFAULT_STENCIL_RADIUS,
-        )
-        return lambda poses, bind: cost_mod.bound_cost(
-            poses, cost_mod.bind_points_local(bind, nbr, scan.points, cfg.map)
-        )
-    if cfg.cost_mode == "local_exact":
-        nbr = cost_mod.bind_neighborhood(
-            guess, snap, scan.points, scan.valid, cfg.map,
-            radius=cost_mod.DEFAULT_STENCIL_RADIUS,
-        )
-        return lambda poses, bind: cost_mod.stencil_exact_cost(
-            poses, nbr, scan.points, cfg.map
-        )
-    raise ValueError(f"cost_mode {cfg.cost_mode!r} runs a whole-solve kernel, not a cost "
-                     "function (align dispatches it to _align_rollout)")
+    solve_mod.check(cfg.cost_mode, cfg.optimizer, node=True)
 
 
 def _align_rollout(key, guess, deviation, snap, scan, cfg: SlamConfig) -> PsoResult:
     """One B = 1 solve through the whole-solve kernel of a ``rollout*``
-    cost mode (``ops/rollout.py:solve_rollout_mode``)."""
-    # The key's u32 words as the kernel takes them, int32 bit patterns, made
-    # on the host: one host-to-device copy that does not wait for the
-    # stream, and no conversion on the device.
-    keys = (torch.tensor([[key[0], key[1]]], dtype=torch.int64) & 0xFFFFFFFF).to(torch.int32)
-    keys = keys.to(guess.device, non_blocking=True)
+    cost mode (``models/solve.py:solve_rollout_mode``), its key words made
+    on the host."""
     pose, c = solve_rollout_mode(
-        cfg.cost_mode, keys, guess[None], deviation[None], snap, scan.points[None],
-        scan.valid[None], cfg.map, cfg.pso, cfg.solver_early_exit,
+        cfg.cost_mode, _build.u32_words(key, guess.device), guess[None], deviation[None], snap,
+        scan.points[None], scan.valid[None], cfg.map, cfg.pso, cfg.solver_early_exit,
     )
     return PsoResult(pose=pose[0].to(guess.dtype), cost=c[0])
 
@@ -194,12 +145,11 @@ def align(
         deviation = torch.tensor(cfg.first_deviation, dtype=dtype, device=guess.device)
     else:
         deviation = torch.abs(astate.pose_diff * cfg.deviation_scale)
-    if cfg.cost_mode.startswith("rollout"):
+    if solve_mod.MODES[cfg.cost_mode].solve == "kernel":
         result = _align_rollout(key, guess, deviation, snap, scan, cfg)
     else:
-        result = OPTIMIZERS[cfg.optimizer](
-            key, guess, deviation, make_cost_fn(snap, scan, cfg, guess), cfg.pso
-        )
+        cost_fn = solve_mod.cost_fn(cfg.cost_mode, snap, scan.points, scan.valid, cfg.map, guess)
+        result = OPTIMIZERS[cfg.optimizer](key, guess, deviation, cost_fn, cfg.pso)
     if cfg.cost_mode != "exact":
         with profiling.span("step.rescore"):
             exact = cost_mod.ndt_cost(

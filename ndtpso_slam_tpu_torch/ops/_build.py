@@ -135,8 +135,13 @@ def u32_words(keys, device):
     """Key words [B, 2] as the kernels take them: u32 words carried as their
     int32 bit patterns, contiguous on ``device``.  An int32 tensor already
     contiguous there is returned as it is, with no device operation; other
-    integer words (int64, uint32) keep their low 32 bits."""
+    integer words (int64, uint32) keep their low 32 bits.  Host words (a
+    sequence of (k0, k1) pairs of integers, or one pair) are made on the
+    host and sent with one copy that does not wait for the stream."""
     device = torch.device(device)
+    if not isinstance(keys, torch.Tensor):
+        words = (torch.tensor(keys, dtype=torch.int64).reshape(-1, 2) & 0xFFFFFFFF).to(torch.int32)
+        return words.to(device, non_blocking=True)
     if (keys.dtype == torch.int32 and keys.is_contiguous() and keys.device.type == device.type
             and (device.index is None or keys.device.index == device.index)):
         return keys

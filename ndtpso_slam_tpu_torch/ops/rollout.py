@@ -18,9 +18,7 @@ wrapper allocates (``pso_rollout.LAST_ROUTE``).  :func:`packed_frozen_cost` with
 launches the kernel for tensors on a CUDA device; it never falls back from
 one to the other.  ``pso_rollout.LAUNCHES`` counts kernel launches and
 ``pso_rollout.LAST_CLUSTER`` is the C of the last launch.  The library is
-built by ``ops/_build.py``.  :func:`solve_rollout_mode` maps a
-``rollout*`` cost mode to its kernel call, for batch scan matching and the
-SLAM align alike.
+built by ``ops/_build.py``.
 """
 
 from __future__ import annotations
@@ -38,8 +36,6 @@ from ndtpso_slam_tpu_torch.ops.rollout_local import (
     BIG,
     EXP2_SCALE,
     default_exp_mode,
-    pack_rollout_local_inputs,
-    pso_rollout_local,
     rank_sliced_sum,
 )
 from ndtpso_slam_tpu_torch.utils import profiling
@@ -358,37 +354,3 @@ def pso_rollout(
 pso_rollout.LAUNCHES = 0
 pso_rollout.LAST_CLUSTER = None
 pso_rollout.LAST_ROUTE = None
-
-
-def solve_rollout_mode(
-    cost_mode: str,
-    keys: torch.Tensor,  # [B, 2] integer u32 words
-    guesses: torch.Tensor,  # [B, 3]
-    deviations: torch.Tensor,  # [B, 3]
-    snaps,  # MapSnapshot: one shared by the B solves, or stacked [B, C, ...]
-    points: torch.Tensor,  # [B, N, 2]
-    valid: torch.Tensor,  # [B, N]
-    map_cfg: MapConfig,
-    pso_cfg: PSOConfig,
-    early_exit: int = 0,
-):
-    """B solves in one launch of the whole-solve kernel a ``rollout*`` cost
-    mode names: ``rollout_local[_turbo]`` through :func:`pso_rollout_local`,
-    ``rollout[_turbo][_bf16]`` through :func:`pso_rollout`.  The stencil is
-    gathered at each guess.  Returns (pose [B, 3] f32, cost [B])."""
-    if not cost_mode.startswith("rollout"):
-        raise ValueError(f"{cost_mode!r} is not a rollout cost mode")
-    radius = cost_mod.DEFAULT_STENCIL_RADIUS
-    with profiling.span("solve.bind"):
-        nbrs = cost_mod.bind_neighborhood(guesses, snaps, points, valid, map_cfg, radius)
-    rng_mode = "native" if "turbo" in cost_mode else "threefry"
-    if "local" in cost_mode:
-        with profiling.span("solve.pack"):
-            sten, pts = pack_rollout_local_inputs(nbrs, points)
-        return pso_rollout_local(keys, guesses, deviations, sten, pts, pso_cfg, map_cfg,
-                                 radius, early_exit, rng_mode)
-    with profiling.span("solve.pack"):
-        sten, pts = pack_rollout_inputs(nbrs, points)
-    return pso_rollout(keys, guesses, deviations, sten, pts, pso_cfg, map_cfg, radius,
-                       score_dtype="bf16" if "bf16" in cost_mode else "f32",
-                       rng_mode=rng_mode, early_exit=early_exit)

@@ -14,7 +14,7 @@ reproduces its solo ``run_offline`` bit for bit.
 
 * The solves of a ``rollout*`` cost mode are ONE launch of the whole-solve
   kernel (K1 ``rollout_local[_turbo]`` or K2 ``rollout[_turbo][_bf16]``,
-  ``ops/rollout.py:solve_rollout_mode``) with B = the robots that align
+  ``models/solve.py:solve_rollout_mode``) with B = the robots that align
   this step; robots on their first scan and inactive robots are left out,
   and a step where none aligns launches nothing.  The plain cost modes run
   the solo ``align`` per aligning robot on its view (what the JAX ``vmap``
@@ -54,6 +54,7 @@ import torch
 from ndtpso_slam_tpu_torch.config import MapConfig, SlamConfig
 from ndtpso_slam_tpu_torch.models import cost as cost_mod
 from ndtpso_slam_tpu_torch.models import ndt_map
+from ndtpso_slam_tpu_torch.models import solve as solve_mod
 from ndtpso_slam_tpu_torch.models.ndt_map import MapSnapshot, NdtMapState
 from ndtpso_slam_tpu_torch.models.pso import PsoResult
 from ndtpso_slam_tpu_torch.models.scan import Scan
@@ -63,11 +64,10 @@ from ndtpso_slam_tpu_torch.models.slam import (
     _relocalize,
     align,
     session_state,
-    validate_config,
 )
-from ndtpso_slam_tpu_torch.ops import rng
+from ndtpso_slam_tpu_torch.models.solve import solve_rollout_mode
+from ndtpso_slam_tpu_torch.ops import _build, rng
 from ndtpso_slam_tpu_torch.ops.geometry import cell_index, transform_points
-from ndtpso_slam_tpu_torch.ops.rollout import solve_rollout_mode
 from ndtpso_slam_tpu_torch.ops.row_scatter import row_scatter
 from ndtpso_slam_tpu_torch.parallel import runtime
 
@@ -133,10 +133,8 @@ def _align_rollout_fleet(
     cold = np.nonzero(astates.iter < 2)[0].tolist()
     if cold:
         deviation[cold] = torch.tensor(cfg.first_deviation, dtype=dtype, device=dev)
-    # The keys' u32 words as the kernel takes them, made on the host.
-    words = (torch.tensor(keys, dtype=torch.int64).reshape(-1, 2) & 0xFFFFFFFF).to(torch.int32)
     pose, _ = solve_rollout_mode(
-        cfg.cost_mode, words.to(dev, non_blocking=True), guesses, deviation, snaps,
+        cfg.cost_mode, _build.u32_words(keys, dev), guesses, deviation, snaps,
         scan_t.points, scan_t.valid, cfg.map, cfg.pso, cfg.solver_early_exit,
     )
     pose = pose.to(dtype)
@@ -171,7 +169,7 @@ def _fleet_step(
     iters = states.align.iter.copy()
     cost = torch.zeros(b, dtype=dtype, device=dev)
     snaps = _snapshots(states.map, cfg.map)
-    if rows.size and cfg.cost_mode.startswith("rollout"):
+    if rows.size and solve_mod.MODES[cfg.cost_mode].solve == "kernel":
         every = rows.size == b
         sub = (lambda t: t) if every else (lambda t: t[torch.from_numpy(rows).to(dev)])
         new, res = _align_rollout_fleet(
@@ -329,7 +327,7 @@ def _check_fleet_cfg(cfg: SlamConfig, allow_recovery: bool = False) -> None:
             "the flat-fleet path does not raster occupancy grids; use run_offline_batch "
             "(or raster per robot offline from the map state export)"
         )
-    validate_config(cfg)
+    solve_mod.check(cfg.cost_mode, cfg.optimizer, node=True)
 
 
 def run_offline_fleet(

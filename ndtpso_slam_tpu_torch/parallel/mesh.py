@@ -3,21 +3,17 @@
 Port of ``solve_batch`` of ``ndtpso_slam_tpu/parallel/mesh.py`` on one GPU.
 B scan pairs, robots or relocalization hypotheses, each with its own map
 snapshot (stacked ``[B, C, ...]``), key, guess and deviation, are solved
-together:
+together, each cost mode as ``models/solve.py:MODES`` says:
 
-* ``rollout``, ``rollout_bf16``, ``rollout_turbo``, ``rollout_turbo_bf16``:
-  one launch of the frozen-correspondence rollout kernel (``ops/rollout.py``)
-  for the whole batch;
-* ``rollout_local``, ``rollout_local_turbo``: one launch of the
-  per-particle exact rollout kernel (``ops/rollout_local.py``);
-* ``fast_fused``, ``fast_local_fused``: the batched solver
-  (``pso_solve_batch``) with the fused scoring kernel (``ops/score.py``) on
-  every cost evaluation;
-* ``exact``, ``fast``, ``fast_local``, ``fast_matmul``, ``local_exact``:
-  plain PyTorch solves, one after another (the JAX package has no kernel for
-  them either), with ``optimizer="glir"`` GLIR-PSO solves; the rollout and
-  fused modes run the deployed PSO update rule only and refuse GLIR, as in
-  the JAX package.
+* a ``"kernel"`` mode (``rollout*``): one launch of its whole-solve kernel,
+  K1 or K2, for the whole batch;
+* a ``"batch"`` mode (``fast_fused``, ``fast_local_fused``): the batched
+  solver (``pso_solve_batch``) with the fused scoring kernel
+  (``ops/score.py``) on every cost evaluation;
+* a ``"cost"`` mode: plain PyTorch solves, one after another (the JAX
+  package has no kernel for them either), with ``optimizer="glir"``
+  GLIR-PSO solves; the other modes run the deployed PSO update rule only
+  and refuse GLIR, as in the JAX package.
 
 The JAX package's ``ROLLOUT_GRID_BLOCK`` (a TPU toolchain workaround) has no
 counterpart.
@@ -38,36 +34,20 @@ import itertools
 import torch
 
 from ndtpso_slam_tpu_torch.config import MapConfig, PSOConfig
-from ndtpso_slam_tpu_torch.models import cost as cost_mod
+from ndtpso_slam_tpu_torch.models import solve as solve_mod
 from ndtpso_slam_tpu_torch.models.ndt_map import MapSnapshot
 from ndtpso_slam_tpu_torch.models.pso import OPTIMIZERS, PsoResult, pso_solve_batch
-from ndtpso_slam_tpu_torch.ops.rollout import solve_rollout_mode
+from ndtpso_slam_tpu_torch.models.solve import solve_rollout_mode
 from ndtpso_slam_tpu_torch.parallel import runtime
 from ndtpso_slam_tpu_torch.utils import profiling
 
 SOLVE_AXIS = "solves"
 _CALLS = itertools.count()
-STENCIL_RADIUS = cost_mod.DEFAULT_STENCIL_RADIUS
 
-# Every cost/solver mode solve_batch dispatches on; an unknown string is
-# rejected up front, so a typo cannot run a different kernel.
-COST_MODES = frozenset(
-    {
-        "exact",
-        "fast",
-        "fast_local",
-        "fast_matmul",
-        "local_exact",
-        "fast_fused",
-        "fast_local_fused",
-        "rollout",
-        "rollout_bf16",
-        "rollout_turbo",
-        "rollout_turbo_bf16",
-        "rollout_local",
-        "rollout_local_turbo",
-    }
-)
+# Every cost/solver mode solve_batch dispatches on (models/solve.py:MODES);
+# an unknown string is rejected up front, so a typo cannot run a different
+# kernel.
+COST_MODES = frozenset(solve_mod.MODES)
 
 
 def make_mesh(n_devices=None, axis=SOLVE_AXIS, device="cuda") -> runtime.Mesh:
@@ -87,10 +67,7 @@ def make_sharded_solver(mesh: runtime.Mesh, map_cfg: MapConfig, pso_cfg: PSOConf
     own, stacked [B/D, C, ...].  ``axes`` is only validated: the caller
     cuts its rows with ``runtime.shard_rows``."""
     mesh.axis_names(axes)
-    if cost_mode not in COST_MODES:
-        raise ValueError(
-            f"unknown cost_mode {cost_mode!r}; expected one of {sorted(COST_MODES)}"
-        )
+    solve_mod.check(cost_mode)
 
     def solve(keys, guesses, deviations, snaps, points, valid) -> PsoResult:
         if (snaps.built.dim() == 1) != shared_map:
@@ -113,31 +90,6 @@ def solve_batch_sharded(mesh: runtime.Mesh, keys, guesses, deviations, snaps, po
     return PsoResult(*runtime.gather_global(mesh, tuple(res), mesh.axes))
 
 
-def _solve_one(key, guess, deviation, snap, points, valid, map_cfg, pso_cfg, cost_mode,
-               optimizer="pso"):
-    """One plain solve in a per-solve cost mode, by ``optimizer``."""
-    if cost_mode == "fast":
-        cost_fn = lambda poses, bind: cost_mod.bound_cost(
-            poses, cost_mod.bind_points(bind, snap, points, valid, map_cfg)
-        )
-    elif cost_mode == "fast_local":
-        nbr = cost_mod.bind_neighborhood(guess, snap, points, valid, map_cfg, STENCIL_RADIUS)
-        cost_fn = lambda poses, bind: cost_mod.bound_cost(
-            poses, cost_mod.bind_points_local(bind, nbr, points, map_cfg)
-        )
-    elif cost_mode == "fast_matmul":
-        tbl = cost_mod.snapshot_table(snap)
-        cost_fn = lambda poses, bind: cost_mod.bound_cost(
-            poses, cost_mod.bind_points_matmul(bind, tbl, points, valid, map_cfg)
-        )
-    elif cost_mode == "local_exact":
-        nbr = cost_mod.bind_neighborhood(guess, snap, points, valid, map_cfg, STENCIL_RADIUS)
-        cost_fn = lambda poses, bind: cost_mod.stencil_exact_cost(poses, nbr, points, map_cfg)
-    else:
-        cost_fn = lambda poses, bind: cost_mod.ndt_cost(poses, snap, points, valid, map_cfg)
-    return OPTIMIZERS[optimizer](key, guess, deviation, cost_fn, pso_cfg)
-
-
 def solve_batch(
     keys: torch.Tensor,  # [B, 2] integer u32 words
     guesses: torch.Tensor,  # [B, 3]
@@ -154,50 +106,25 @@ def solve_batch(
     """B independent scan-match solves.  Returns pose [B, 3], cost [B].
 
     ``early_exit`` reaches the rollout kernels only, as in the JAX package."""
-    if cost_mode not in COST_MODES:
-        raise ValueError(
-            f"unknown cost_mode {cost_mode!r}; expected one of {sorted(COST_MODES)}"
-        )
-    if optimizer not in OPTIMIZERS:
-        raise ValueError(f"unknown optimizer {optimizer!r}; expected 'pso' | 'glir'")
-    if optimizer == "glir" and (cost_mode.startswith("rollout") or cost_mode.endswith("_fused")):
-        raise ValueError(
-            "optimizer='glir' runs through the per-solve cost modes only "
-            "(the rollout/fused kernels implement the deployed PSO update rule)"
-        )
+    kind = solve_mod.check(cost_mode, optimizer).solve
     # The call's root span; its request id counts the process's calls.
     with profiling.span("batch.call", next(_CALLS)):
-        if cost_mode.startswith("rollout"):
+        if kind == "kernel":
             pose, cost = solve_rollout_mode(cost_mode, keys, guesses, deviations, snaps, points,
                                             valid, map_cfg, pso_cfg, early_exit)
             return PsoResult(pose=pose.to(guesses.dtype), cost=cost)
-        if cost_mode == "fast_fused":
-
-            def batched_cost(poses, binds):  # [B, P, 3], [B, 3] -> [B, P]
-                bound = cost_mod.bind_points(binds, snaps, points, valid, map_cfg)
-                return cost_mod.bound_cost_fused(poses, bound)
-
-            return pso_solve_batch(keys, guesses, deviations, batched_cost, pso_cfg)
-        if cost_mode == "fast_local_fused":
-            nbrs = cost_mod.bind_neighborhood(guesses, snaps, points, valid, map_cfg,
-                                              STENCIL_RADIUS)
-
-            def batched_cost(poses, binds):
-                bound = cost_mod.bind_points_local(binds, nbrs, points, map_cfg)
-                return cost_mod.bound_cost_fused(poses, bound)
-
-            return pso_solve_batch(keys, guesses, deviations, batched_cost, pso_cfg)
+        if kind == "batch":
+            cost_fn = solve_mod.cost_fn(cost_mode, snaps, points, valid, map_cfg, guesses)
+            return pso_solve_batch(keys, guesses, deviations, cost_fn, pso_cfg)
         keys = keys.to(torch.int64).cpu() & 0xFFFFFFFF
         shared = snaps.built.dim() == 1
-        results = [
-            _solve_one(
-                (int(keys[b, 0]), int(keys[b, 1])), guesses[b], deviations[b],
-                snaps if shared else MapSnapshot(mean=snaps.mean[b], inv_cov=snaps.inv_cov[b],
-                                                 built=snaps.built[b]),
-                points[b], valid[b], map_cfg, pso_cfg, cost_mode, optimizer,
-            )
-            for b in range(guesses.shape[0])
-        ]
+        results = []
+        for b in range(guesses.shape[0]):
+            snap = snaps if shared else MapSnapshot(mean=snaps.mean[b], inv_cov=snaps.inv_cov[b],
+                                                    built=snaps.built[b])
+            cost_fn = solve_mod.cost_fn(cost_mode, snap, points[b], valid[b], map_cfg, guesses[b])
+            results.append(OPTIMIZERS[optimizer]((int(keys[b, 0]), int(keys[b, 1])), guesses[b],
+                                                 deviations[b], cost_fn, pso_cfg))
         return PsoResult(
             pose=torch.stack([r.pose for r in results]), cost=torch.stack([r.cost for r in results])
         )

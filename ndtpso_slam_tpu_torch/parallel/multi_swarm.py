@@ -34,8 +34,8 @@ import torch
 from ndtpso_slam_tpu_torch.config import MapConfig, PSOConfig
 from ndtpso_slam_tpu_torch.models import cost as cost_mod
 from ndtpso_slam_tpu_torch.models.ndt_map import MapSnapshot
-from ndtpso_slam_tpu_torch.models.pso import RNG_MODES, PsoResult, _select_min, pso_solve_batch
-from ndtpso_slam_tpu_torch.ops.rollout import SCORE_DTYPES, solve_rollout_mode
+from ndtpso_slam_tpu_torch.models.pso import PsoResult, _select_min, pso_solve_batch
+from ndtpso_slam_tpu_torch.models.solve import MODES, solve_rollout_mode
 from ndtpso_slam_tpu_torch.parallel import runtime
 
 
@@ -127,13 +127,15 @@ def multi_swarm_rollout(
     one shared snapshot, then the exact-cost merge, across the ranks of
     ``mesh`` along ``axis_name`` when one is named.  ``score_dtype`` "bf16"
     and ``rng_mode`` "native" take the ``rollout_bf16`` / ``rollout_turbo``
-    kernel modes.  Returns the single best (pose [3], exact cost []) in the
-    caller's dtype."""
-    if score_dtype not in SCORE_DTYPES or rng_mode not in RNG_MODES:
+    kernel modes (K2's mode of that pair in ``models/solve.py:MODES``).
+    Returns the single best (pose [3], exact cost []) in the caller's
+    dtype."""
+    mode = next((name for name, m in MODES.items()
+                 if m.kernel == "k2" and (m.score_dtype, m.rng_mode) == (score_dtype, rng_mode)),
+                None)
+    if mode is None:
         raise ValueError(f"unknown score_dtype {score_dtype!r} or rng_mode {rng_mode!r}")
     k = guesses.shape[0]
-    mode = "rollout" + ("_turbo" if rng_mode == "native" else "") + (
-        "_bf16" if score_dtype == "bf16" else "")
     g = guesses.to(torch.float32)
     devs = torch.as_tensor(deviation, dtype=torch.float32).to(g.device).expand(k, 3)
     poses, _ = solve_rollout_mode(mode, keys, g, devs, snap, points.expand(k, -1, -1),

@@ -41,6 +41,7 @@ from ndtpso_slam_tpu_torch.models import cost as tcost
 from ndtpso_slam_tpu_torch.models import ndt_map as tmap
 from ndtpso_slam_tpu_torch.models import scan as tscan
 from ndtpso_slam_tpu_torch.models import slam as tslam
+from ndtpso_slam_tpu_torch.models import solve as tsolve
 from ndtpso_slam_tpu_torch.ops import _build
 from ndtpso_slam_tpu_torch.ops import rollout as tro
 from ndtpso_slam_tpu_torch.ops import rollout_local as trl
@@ -268,7 +269,7 @@ _TURBO = ("rollout_turbo", "rollout_turbo_bf16", "rollout_local_turbo")
 
 
 def test_cost_modes_are_the_jax_modes():
-    assert set(_TOL) | set(_TURBO) == set(tmesh.COST_MODES)
+    assert set(_TOL) | set(_TURBO) == set(tmesh.COST_MODES) == set(tsolve.MODES)
     if jax is not None:
         assert tmesh.COST_MODES == jmesh.COST_MODES
 
@@ -346,7 +347,7 @@ def test_slam_align_is_a_solve_batch_of_one(world, mode):
     np.testing.assert_array_equal(one.pose.numpy(), batch.pose[0].numpy())
     np.testing.assert_array_equal(one.cost.numpy(), batch.cost[0].numpy())
     with pytest.raises(ValueError, match="not a rollout cost mode"):
-        tro.solve_rollout_mode("fast", keys, guesses, devs, snaps, points, valid, TMAP, cfg)
+        tsolve.solve_rollout_mode("fast", keys, guesses, devs, snaps, points, valid, TMAP, cfg)
 
 
 def test_solve_batch_rejects_unknown_and_unported(world):
@@ -364,6 +365,57 @@ def test_solve_batch_rejects_unknown_and_unported(world):
     got = tmesh.solve_batch_sharded(mesh, *args, TMAP, cfg)
     ref = tmesh.solve_batch(*args, TMAP, cfg)
     assert torch.equal(got.pose, ref.pose) and torch.equal(got.cost, ref.cost)
+
+
+@needs_jax
+@pytest.mark.parametrize("which", ["node", "batch"])
+def test_mode_table_holds_the_jax_packages_modes(which):
+    """The one table of cost modes (models/solve.py:MODES): its node modes
+    are the JAX package's SLAM_COST_MODES, in their order (the CLI's
+    choices), and all its modes the JAX package's batch COST_MODES; the
+    port's public lists are views of it."""
+    from ndtpso_slam_tpu.models import slam as jslam
+
+    if which == "node":
+        assert tsolve.NODE_MODES == jslam.SLAM_COST_MODES == tslam.SLAM_COST_MODES
+        assert all(tsolve.MODES[m].node for m in jslam.SLAM_COST_MODES)
+    else:
+        assert frozenset(tsolve.MODES) == jmesh.COST_MODES == tmesh.COST_MODES
+
+
+# (cost mode, optimizer, the match) of each refusal: an unknown mode, and
+# GLIR-PSO with a whole-solve kernel's mode.
+_REFUSED = {"unknown": ("rollout_brf16", "pso", "unknown cost_mode"),
+            "glir": ("rollout_local", "glir", "glir")}
+
+
+@pytest.mark.parametrize("site,case", [
+    (site, case)
+    for site in ("validate_config", "solve_batch", "make_sharded_solver", "check_fleet_cfg")
+    for case in _REFUSED
+    if (site, case) != ("make_sharded_solver", "glir")  # the sharded solver runs PSO only
+])
+def test_every_entry_refuses_a_mode_alike(world, site, case):
+    """The SLAM config, solve_batch, the sharded solver and the flat fleet
+    refuse an unknown mode and GLIR with a kernel mode through the one
+    check, with its text (the node's modes for the node's entries)."""
+    from ndtpso_slam_tpu_torch.parallel import fleet as tfleet
+
+    mode, optimizer, match = _REFUSED[case]
+    cfg = tcfg.PSOConfig(iterations=2, population=8)
+    scfg = tcfg.SlamConfig(pso=cfg, map=TMAP, cost_mode=mode, optimizer=optimizer)
+    entries = {
+        "validate_config": lambda: tslam.validate_config(scfg),
+        "solve_batch": lambda: tmesh.solve_batch(*_targs(world), TMAP, cfg, mode, optimizer),
+        "make_sharded_solver": lambda: tmesh.make_sharded_solver(
+            tmesh.make_mesh(device="cpu"), TMAP, cfg, mode),
+        "check_fleet_cfg": lambda: tfleet._check_fleet_cfg(scfg),
+    }
+    with pytest.raises(ValueError) as want:
+        tsolve.check(mode, optimizer, node=site in ("validate_config", "check_fleet_cfg"))
+    with pytest.raises(ValueError, match=match) as got:
+        entries[site]()
+    assert str(got.value) == str(want.value)
 
 
 # ------------------------------------------------ one solve per cluster

@@ -270,9 +270,10 @@ def test_u32_words_returns_int32_words_on_the_device_as_they_are():
 
 
 def test_align_rollout_key_words_are_the_int64_words_low_bits(monkeypatch):
-    """_align_rollout hands the kernel int32 bit patterns made on the host:
-    the low 32 bits of the int64 words it made before, so u32_words needs
-    no device operation and the draws stay bit-equal."""
+    """_align_rollout hands the kernel int32 bit patterns made on the host
+    (u32_words' host route): the low 32 bits of the int64 words it made
+    before, so u32_words needs no device operation and the draws stay
+    bit-equal."""
     from types import SimpleNamespace
 
     from ndtpso_slam_tpu_torch.models import slam as tslam
@@ -296,3 +297,11 @@ def test_align_rollout_key_words_are_the_int64_words_low_bits(monkeypatch):
         assert got.dtype == torch.int32 and _build.u32_words(got, "cpu") is got
         assert torch.equal(got, _build.u32_words(old, "cpu"))
         assert torch.equal(got.to(torch.int64) & 0xFFFFFFFF, old & 0xFFFFFFFF)
+        host = _build.u32_words(key, "cpu")  # the host route, one pair
+        assert host.dtype == torch.int32 and host.shape == (1, 2) and torch.equal(host, got)
+    # The host route of B pairs: keys >= 2^31 keep their low words' bits.
+    host = _build.u32_words(keys, "cpu")
+    assert host.dtype == torch.int32 and host.shape == (len(keys), 2)
+    want = torch.tensor(keys, dtype=torch.int64) & 0xFFFFFFFF
+    assert torch.equal(host.to(torch.int64) & 0xFFFFFFFF, want)
+    assert host[-1].tolist() == [-2**31, 2**31 - 1]
